@@ -1,0 +1,430 @@
+"""Smoke test of the PyTorch port (uvaia_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero, without the final result line):
+  0. environment: card name and power limit, torch / CUDA versions,
+     whether the native IO library loaded; fails without CUDA;
+  1. build the four CUDA kernels from uvaia_tpu_torch/csrc with nvcc;
+  2. each kernel against its plain PyTorch version on the card, exact
+     equality, at the shapes of the main path (B=4096 references of
+     L=29903 sites), with CUDA-event times of both;
+  3. `nearest` end to end on the card against an independent numpy
+     oracle (L=29903, Q=8, 2048 references, k=10);
+  4. `nearest` through its command line at scale: 16384 synthetic
+     SARS-CoV-2-length genomes, 64 queries with ambiguity codes,
+     nbest=100, pool=4096, prune on and off — byte-equal CSVs, and
+     every kernel's launch counter > 0 over these two runs;
+  5. device-resident scan-step rate at L=29903, Q=64, B=4096, k=50.
+The line before the last is the card's `name, power.limit`; the line
+before it the kernels' JSON record; the last line is the result.
+Data comes from fixed seeds; files go to build/chip_smoke/ and are
+removed at the end.
+"""
+
+from __future__ import annotations
+
+import json
+import lzma
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from uvaia_tpu_torch.cli import main as cli_main
+from uvaia_tpu_torch.engine.nearest import NearestConfig, run_nearest
+from uvaia_tpu_torch.engine.query import build_query_pack
+from uvaia_tpu_torch.ops import _build, host, recon, scan, score_kernels
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
+L_SITES = 29903
+BATCH = 4096
+
+# IUPAC letters and their 4-bit codes (A=1, C=2, G=4, T=8, N/gap = 0)
+_CODES = {"A": 1, "C": 2, "G": 4, "T": 8, "M": 3, "R": 5, "W": 9, "S": 6,
+          "Y": 10, "K": 12, "V": 7, "H": 11, "D": 13, "B": 14, "N": 0,
+          "-": 0}
+LUT = np.zeros(256, dtype=np.uint8)
+for _ch, _c in _CODES.items():
+    LUT[ord(_ch)] = _c
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+AMBIG = np.frombuffer(b"RYKMSWBDHV", dtype=np.uint8)
+
+KERNELS = {
+    "score_counters": dict(
+        source="uvaia_tpu_torch/csrc/score.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:107",
+        wrapper=score_kernels.score_counters),
+    "score_counters_packed": dict(
+        source="uvaia_tpu_torch/csrc/score.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:463",
+        wrapper=score_kernels.score_counters_packed),
+    "amb_corr": dict(
+        source="uvaia_tpu_torch/csrc/corr.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:239",
+        wrapper=score_kernels.amb_corr),
+    "delta_rebuild": dict(
+        source="uvaia_tpu_torch/csrc/recon.cu",
+        replaces="uvaia_tpu/ops/pallas_recon.py:37",
+        wrapper=recon.delta_rebuild),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ----------------------------------------------------------------------
+# synthetic data (letters, as FASTA holds them)
+
+
+def make_genomes(rng, n: int, L: int, parents: np.ndarray, snps: int,
+                 amb: int, n_runs: int) -> np.ndarray:
+    """(n, L) uint8 letters: a random parent row each, plus `snps`
+    random bases, `amb` ambiguity codes, `n_runs` runs of N (5-400
+    sites) and, on every fourth row, a masked tail."""
+    out = parents[rng.integers(0, len(parents), n)].copy()
+    rows = np.repeat(np.arange(n), snps)
+    out[rows, rng.integers(0, L, n * snps)] = ACGT[rng.integers(0, 4, n * snps)]
+    rows = np.repeat(np.arange(n), amb)
+    out[rows, rng.integers(0, L, n * amb)] = AMBIG[rng.integers(0, 10, n * amb)]
+    for r in range(n):
+        for _ in range(n_runs):
+            s = int(rng.integers(0, L - 400))
+            out[r, s:s + int(rng.integers(5, 400))] = ord("N")
+        if r % 4 == 0:
+            out[r, L - int(rng.integers(20, 300)):] = ord("N")
+    return out
+
+
+def write_fasta(path: Path, prefix: str, letters: np.ndarray) -> None:
+    with open(path, "wb") as f:
+        for i in range(0, len(letters), 1024):
+            f.write(b"".join(b">%s%d\n%s\n" % (prefix.encode(), i + j,
+                                                row.tobytes())
+                             for j, row in enumerate(letters[i:i + 1024])))
+
+
+def query_set(rng, L: int, q: int) -> np.ndarray:
+    """(q, L) query letters around one random backbone."""
+    backbone = ACGT[rng.integers(0, 4, L)]
+    return make_genomes(rng, q, L, backbone[None, :], snps=30, amb=4,
+                        n_runs=1)
+
+
+# ----------------------------------------------------------------------
+# timing
+
+
+def timed_ms(fn, reps: int = 7) -> float:
+    """Median milliseconds of fn() over `reps` runs after one warm-up,
+    from CUDA events on the card."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    """Largest absolute difference over parallel tuples of tensors;
+    raises if any shape differs or any value is not equal."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    err = 0.0
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape:
+            raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
+        d = (x.to(torch.int64) - y.to(torch.int64)).abs()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    if err != 0.0:
+        raise AssertionError(f"kernel and plain version differ by {err}")
+    return err
+
+
+# ----------------------------------------------------------------------
+# phases
+
+
+def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
+    """Each kernel vs its plain version on the same tensors."""
+    queries = query_set(rng, L, max(qs_list))
+    refs = make_genomes(rng, B, L, queries, snps=20, amb=3, n_runs=2)
+    codes = LUT[refs]
+    packed_d = torch.from_numpy(host.pack_codes(codes)).to(dev)
+    for Q in qs_list:
+        qpath = WORK / f"k_q{Q}.fa"
+        write_fasta(qpath, "q", queries[:Q])
+        pack = build_query_pack(str(qpath))
+        qd = scan.build_device_data(pack, k=10, device=dev)
+        r = scan._to_width(torch.from_numpy(codes).to(dev), qd.width)
+        args = (r, qd.q_full, qd.cons_full)
+        err = max_err(score_kernels.score_counters(*args),
+                      score_kernels.score_counters_plain(*args))
+        ms = timed_ms(lambda: score_kernels.score_counters(*args))
+        plain = timed_ms(lambda: score_kernels.score_counters_plain(*args),
+                         reps=3)
+        log(f"  score_counters B={B} W={qd.width} Q={pack.n_query}: "
+            f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        pargs = (packed_d, qd.q_full, qd.cons_full)
+        perr = max_err(score_kernels.score_counters_packed(*pargs),
+                       score_kernels.score_counters_packed_plain(*pargs))
+        pms = timed_ms(lambda: score_kernels.score_counters_packed(*pargs))
+        pplain = timed_ms(
+            lambda: score_kernels.score_counters_packed_plain(*pargs), reps=3)
+        log(f"  score_counters_packed B={B} P={packed_d.shape[1]} "
+            f"Q={pack.n_query}: max_abs_err={perr} kernel {pms:.3f} ms, "
+            f"plain {pplain:.3f} ms")
+        if Q == 64:
+            records["score_counters"].update(max_abs_err=err, ms=ms,
+                                             plain_ms=plain)
+            records["score_counters_packed"].update(max_abs_err=perr, ms=pms,
+                                                    plain_ms=pplain)
+            if qd.amb_sites is None:
+                raise AssertionError("the Q=64 pack has no ambiguity column")
+            ra = scan._take_fill(r, qd.amb_sites)
+            qa = scan._take_fill(qd.q_full, qd.amb_sites)
+            cerr = max_err(score_kernels.amb_corr(ra, qa),
+                           score_kernels.amb_corr_plain(ra, qa))
+            cms = timed_ms(lambda: score_kernels.amb_corr(ra, qa))
+            cplain = timed_ms(lambda: score_kernels.amb_corr_plain(ra, qa),
+                              reps=3)
+            log(f"  amb_corr B={B} A={ra.shape[1]} Q={pack.n_query}: "
+                f"max_abs_err={cerr} kernel {cms:.3f} ms, "
+                f"plain {cplain:.3f} ms")
+            records["amb_corr"].update(max_abs_err=cerr, ms=cms,
+                                       plain_ms=cplain)
+            phase_rebuild(dev, codes, qd, records)
+
+
+def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
+    """delta_rebuild on a delta-encoded batch with SNPs, N-runs (zero-run
+    markers), masked tails and an ok=False row."""
+    B = codes.shape[0]
+    ok = np.ones(B, dtype=bool)
+    ok[B // 2] = False
+    base = qd.delta_base.cpu().numpy()
+    enc = host.delta_encode(codes, ok, base)
+    if enc is None:
+        raise AssertionError("the rebuild batch did not fit the delta buckets")
+    pos, val = (torch.from_numpy(x).to(dev) for x in enc)
+    if not bool((val >= 16).any()):
+        raise AssertionError("the rebuild batch has no zero-run marker")
+    base_d = qd.delta_base
+    out = recon.delta_rebuild(pos, val, base_d, qd.width)
+    err = max_err(out, recon.delta_rebuild_plain(pos, val, base_d, qd.width))
+    want = np.where(ok[:, None], codes, base[None, :])
+    if not np.array_equal(out[:, :codes.shape[1]].cpu().numpy(), want):
+        raise AssertionError("delta_rebuild did not give back the rows")
+    ms = timed_ms(lambda: recon.delta_rebuild(pos, val, base_d, qd.width))
+    plain = timed_ms(
+        lambda: recon.delta_rebuild_plain(pos, val, base_d, qd.width), reps=3)
+    log(f"  delta_rebuild B={B} E={pos.shape[1]} w={qd.width}: "
+        f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    records["delta_rebuild"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+
+
+def oracle_topk(codes: np.ndarray, pack, k: int):
+    """Independent numpy oracle: six scores from their definitions over
+    the query pack's site classes, top-k by lexicographic order with
+    ties to the lower index.  Returns (scores (Q, k, 6), idx (Q, k))."""
+    def counters(a, r):                        # a (S,), r (B, S)
+        valid = (a != 0) & (r != 0)
+        eq = (a == r) & valid
+        pure = np.isin(a, (1, 2, 4, 8))
+        return ((eq & pure).sum(1), eq.sum(1), ((a & r) != 0).sum(1),
+                valid.sum(1))
+    idx_c, idx_mq = pack.idx_c, pack.idx_mq
+    c = counters(pack.consensus[idx_c], codes[:, idx_c])
+    valid_ref = (codes != 0).sum(1)
+    out_s, out_i = [], []
+    for qi in range(pack.n_query):
+        m = counters(pack.codes[qi, idx_mq], codes[:, idx_mq])
+        s = np.stack([c[0] + m[0], c[1] + m[1], c[2] + m[2], c[3] + m[3],
+                      m[0], valid_ref], axis=1)
+        order = np.lexsort(tuple(-s[:, j] for j in range(5, -1, -1)))[:k]
+        out_s.append(s[order])
+        out_i.append(order)
+    return np.stack(out_s), np.stack(out_i)
+
+
+def phase_oracle(dev, rng, L: int) -> None:
+    Q, n, k = 8, 2048, 10
+    queries = query_set(rng, L, Q)
+    refs = make_genomes(rng, n, L, queries, snps=15, amb=2, n_runs=1)
+    # keep what the reference QC keeps (at least half the sites valid),
+    # so database indices are row numbers
+    refs = refs[(LUT[refs] != 0).sum(1) >= L // 2]
+    write_fasta(WORK / "o_q.fa", "q", queries)
+    write_fasta(WORK / "o_db.fa", "r", refs)
+    res = run_nearest([str(WORK / "o_db.fa")], str(WORK / "o_q.fa"),
+                      NearestConfig(nbest=k, pool=512, device=str(dev),
+                                    output=str(WORK / "o_out")))
+    pack = build_query_pack(str(WORK / "o_q.fa"))
+    want_s, want_i = oracle_topk(LUT[refs], pack, k)
+    if not (np.array_equal(res.indices, want_i)
+            and np.array_equal(res.scores, want_s)):
+        raise AssertionError("nearest top-k differs from the oracle")
+    log(f"  nearest vs oracle: L={L} Q={Q} refs={n} k={k}: top-k indices "
+        "and scores equal")
+
+
+def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
+                pool: int) -> dict:
+    """Two CLI runs (prune on / off) at scale; returns the launch
+    counts over both runs."""
+    queries = query_set(rng, L, Q)
+    refs = make_genomes(rng, n, L, queries, snps=25, amb=3, n_runs=2)
+    # one row far from every query: more diffs than the largest delta
+    # bucket, so its batch travels packed
+    far = refs[n - pool // 2]
+    far[rng.permutation(L)[:3 * L // 10]] = ACGT[rng.integers(0, 4, 3 * L // 10)]
+    q_fa, db_fa = WORK / "s_q.fa", WORK / "s_db.fa"
+    write_fasta(q_fa, "q", queries)
+    write_fasta(db_fa, "r", refs)
+    del refs
+    for w in KERNELS.values():
+        w["wrapper"].launches = 0
+    csv = {}
+    for mode, extra in (("prune", []), ("noprune", ["--no-prune"])):
+        out = WORK / f"s_{mode}"
+        argv = ["nearest", "-r", str(db_fa), str(q_fa), "-n", str(nbest),
+                "-p", str(pool), "-o", str(out), "--device", str(dev),
+                *extra]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli_main(argv) != 0:
+            raise AssertionError(f"nearest {mode} failed")
+        wall = time.perf_counter() - t0
+        csv[mode] = (out.parent / (out.name + ".csv.xz")).read_bytes()
+        log(f"  nearest {mode}: {n} genomes x {L} sites, Q={Q}, "
+            f"nbest={nbest}, pool={pool}: {wall:.3f} s wall, "
+            f"{n / wall:,.1f} genomes/s")
+    counts = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+    if csv["prune"] != csv["noprune"]:
+        raise AssertionError("prune and --no-prune CSVs differ")
+    rows = lzma.decompress(csv["prune"]).decode().strip().split("\n")
+    if len(rows) != 1 + Q * nbest:
+        raise AssertionError(f"CSV has {len(rows)} lines, want "
+                             f"{1 + Q * nbest}")
+    log(f"  prune and --no-prune CSVs byte-equal ({len(csv['prune'])} "
+        f"bytes); launches over both runs: {counts}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    return counts
+
+
+def phase_steps(dev, rng, L: int, Q: int, B: int, k: int, steps: int,
+                card: str) -> None:
+    queries = query_set(rng, L, Q)
+    refs = make_genomes(rng, B, L, queries, snps=25, amb=3, n_runs=2)
+    write_fasta(WORK / "b_q.fa", "q", queries)
+    pack = build_query_pack(str(WORK / "b_q.fa"))
+    qd = scan.build_device_data(pack, k=k, device=dev)
+    codes = LUT[refs]
+    ok = np.ones(B, dtype=bool)
+    enc = host.delta_encode(codes, ok, qd.delta_base.cpu().numpy())
+    if enc is None:
+        raise AssertionError("the step batch did not fit the delta buckets")
+    pos, val = (torch.from_numpy(x).to(dev) for x in enc)
+    packed = torch.from_numpy(host.pack_codes(codes)).to(dev)
+    ok_d = torch.from_numpy(ok).to(dev)
+    for name, step in (
+            ("scan_step_delta",
+             lambda st, i: scan.scan_step_delta(qd, st, pos, val, ok_d,
+                                                i * B)),
+            ("scan_step_packed",
+             lambda st, i: scan.scan_step_packed(qd, st, packed, ok_d,
+                                                 i * B))):
+        state = scan.init_state(Q, k, device=dev)
+        for i in range(3):
+            state, _ = step(state, i)
+        it = iter(range(3, 3 + steps))
+        holder = [state]
+
+        def one():
+            holder[0], _ = step(holder[0], next(it))
+        ms = timed_ms(one, reps=steps - 1)
+        log(f"  {name} L={L} Q={Q} B={B} k={k}: {ms:.3f} ms/step, "
+            f"{B / ms * 1e3:,.0f} genomes/s ({card})")
+
+
+def run(dev: torch.device, card: str) -> dict:
+    """Phases 1-5 on `dev`; returns the kernels' JSON records."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(2024)
+    records = {name: dict(name=name, route="cuda", source=w["source"],
+                          replaces=w["replaces"])
+               for name, w in KERNELS.items()}
+    try:
+        log("phase 1: build")
+        t0 = time.perf_counter()
+        _build.build(verbose=True)
+        _build.lib()
+        log(f"  built {_build.LIB_PATH.name} from "
+            f"{len(_build._sources())} sources in "
+            f"{time.perf_counter() - t0:.3f} s")
+        log("phase 2: kernels vs plain versions")
+        phase_kernels(dev, rng, BATCH, L_SITES, (64, 1000, 7, 129), records)
+        log("phase 3: nearest vs oracle")
+        phase_oracle(dev, rng, L_SITES)
+        log("phase 4: nearest at scale, prune on and off")
+        counts = phase_scale(dev, rng, 16384, L_SITES, 64, 100, BATCH)
+        for name, c in counts.items():
+            records[name]["launches"] = c
+        log("phase 5: device-resident step rate")
+        phase_steps(dev, rng, L_SITES, 64, BATCH, 50, 20, card)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms")
+    return {"kernels": [{k: r[k] for k in keys} for r in records.values()]}
+
+
+def main() -> int:
+    log("phase 0: environment")
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+            and smi.stdout.strip() else "nvidia-smi unavailable"
+    except (OSError, subprocess.TimeoutExpired):
+        card = "nvidia-smi unavailable"
+    log(f"  card: {card}")
+    log(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        log("  torch.cuda.is_available() is False: this smoke test needs "
+            "a CUDA GPU")
+        return 1
+    log(f"  native IO library loaded: {host._delta_lib() is not None}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    record = run(dev, card)
+    print(json.dumps(record), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""The port's path needs no jax: in a process where importing jax or
+jaxlib raises, the package imports, `python -m uvaia_tpu_torch nearest
+--device cpu --keep_resolved` runs to exit 0, and chip_smoke imports."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+from test_nearest import random_seqs, write_fasta
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_CHILD = r"""
+import importlib.abc
+import runpy
+import sys
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"{name} is blocked in this process")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+sys.path.insert(0, sys.argv[1])
+
+import uvaia_tpu_torch  # noqa: F401,E402
+
+sys.argv = ["uvaia_tpu_torch", "nearest", "-r", "db.fa", "q.fa", "-n", "3",
+            "-p", "8", "--keep_resolved", "--device", "cpu", "-o", "nojax"]
+try:
+    runpy.run_module("uvaia_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+import chip_smoke  # noqa: F401,E402
+
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert not loaded, loaded
+print("NOJAX-OK")
+"""
+
+
+def test_port_runs_without_jax(tmp_path):
+    rng = np.random.default_rng(12)
+    L = 250
+    qs = random_seqs(rng, 3, L)
+    qs.append(qs[0][:50] + "N" * 20 + qs[0][70:])   # redundant query
+    write_fasta(tmp_path / "q.fa", [f"q{i}" for i in range(len(qs))], qs)
+    write_fasta(tmp_path / "db.fa", [f"r{i}" for i in range(20)],
+                random_seqs(rng, 20, L))
+    r = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT)],
+                       cwd=tmp_path, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "NOJAX-OK" in r.stdout
+    assert "after removing 1 redundant sequences" in r.stderr
+    assert (tmp_path / "nojax.csv.xz").exists()
