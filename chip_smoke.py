@@ -15,7 +15,22 @@ Phases (any failure exits non-zero, without the final result line):
      SARS-CoV-2-length genomes, 64 queries with ambiguity codes,
      nbest=100, pool=4096, prune on and off — byte-equal CSVs, and
      every kernel's launch counter > 0 over these two runs;
-  5. device-resident scan-step rate at L=29903, Q=64, B=4096, k=50.
+  5. device-resident scan-step rate at L=29903, Q=64, B=4096, k=50;
+  6. `align_batch` and the score-only forward on the card against an
+     O(nm) numpy oracle (n=400, 16 queries with SNPs and indels);
+  7. `align` through its command line at scale: 2048 synthetic
+     SARS-CoV-2-length queries against a 29,903-bp reference, pool 1024
+     (SNPs, N runs, indels, truncated ends, QC rejects, an event-capacity
+     overflow row, a row that escapes the first bands) — every branch
+     taken, every row certified, `gotoh_forward` launched, and the first
+     64 QC-passing rows (SNPs and indels, the first band level)
+     byte-equal to a `--device cpu` run of the port on a 64-query file
+     (run in a child process, from phase 1 on).
+Phase 2 also holds the two banded Gotoh kernels against their plain
+versions (B=64 at the first band level W=129, and B=4 at W=4097).  Each
+kernel's launch count comes from the path that runs it: the nearest
+kernels from phase 4, `gotoh_score` from phase 6, `gotoh_forward` from
+phase 7, every count set to 0 just before its phase.
 The line before the last is the card's `name, power.limit`; the line
 before it the kernels' JSON record; the last line is the result.
 Data comes from fixed seeds; files go to build/chip_smoke/ and are
@@ -26,6 +41,7 @@ from __future__ import annotations
 
 import json
 import lzma
+import os
 import shutil
 import statistics
 import subprocess
@@ -37,9 +53,11 @@ import numpy as np
 import torch
 
 from uvaia_tpu_torch.cli import main as cli_main
+from uvaia_tpu_torch.engine import align
 from uvaia_tpu_torch.engine.nearest import NearestConfig, run_nearest
 from uvaia_tpu_torch.engine.query import build_query_pack
-from uvaia_tpu_torch.ops import _build, host, recon, scan, score_kernels
+from uvaia_tpu_torch.ops import _build, gotoh, gotoh_kernels, host, recon
+from uvaia_tpu_torch.ops import scan, score_kernels
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -73,7 +91,18 @@ KERNELS = {
         source="uvaia_tpu_torch/csrc/recon.cu",
         replaces="uvaia_tpu/ops/pallas_recon.py:37",
         wrapper=recon.delta_rebuild),
+    "gotoh_forward": dict(
+        source="uvaia_tpu_torch/csrc/gotoh.cu",
+        replaces="uvaia_tpu/ops/pallas_gotoh.py:143",
+        wrapper=gotoh_kernels.gotoh_forward),
+    "gotoh_score": dict(
+        source="uvaia_tpu_torch/csrc/gotoh.cu",
+        replaces="uvaia_tpu/ops/pallas_gotoh.py:33",
+        wrapper=gotoh_kernels.gotoh_score),
 }
+NEAREST_KERNELS = ("score_counters", "score_counters_packed", "amb_corr",
+                   "delta_rebuild")
+N_REF = 29903          # the SARS-CoV-2 reference length
 
 
 def log(msg: str) -> None:
@@ -295,8 +324,8 @@ def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
     write_fasta(q_fa, "q", queries)
     write_fasta(db_fa, "r", refs)
     del refs
-    for w in KERNELS.values():
-        w["wrapper"].launches = 0
+    for name in NEAREST_KERNELS:
+        KERNELS[name]["wrapper"].launches = 0
     csv = {}
     for mode, extra in (("prune", []), ("noprune", ["--no-prune"])):
         out = WORK / f"s_{mode}"
@@ -312,7 +341,8 @@ def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
         log(f"  nearest {mode}: {n} genomes x {L} sites, Q={Q}, "
             f"nbest={nbest}, pool={pool}: {wall:.3f} s wall, "
             f"{n / wall:,.1f} genomes/s")
-    counts = {name: w["wrapper"].launches for name, w in KERNELS.items()}
+    counts = {name: KERNELS[name]["wrapper"].launches
+              for name in NEAREST_KERNELS}
     if csv["prune"] != csv["noprune"]:
         raise AssertionError("prune and --no-prune CSVs differ")
     rows = lzma.decompress(csv["prune"]).decode().strip().split("\n")
@@ -362,14 +392,311 @@ def phase_steps(dev, rng, L: int, Q: int, B: int, k: int, steps: int,
         log(f"  {name} L={L} Q={Q} B={B} k={k}: {ms:.3f} ms/step, "
             f"{B / ms * 1e3:,.0f} genomes/s ({card})")
 
+# ----------------------------------------------------------------------
+# align: synthetic unaligned genomes (letters)
+
+
+def mutate(rng, ref: bytes, snps: int = 0, n_run: int = 0,
+           indels: int = 0, max_indel: int = 30) -> bytes:
+    """`ref` with `snps` random bases, one run of `n_run` Ns and
+    `indels` insertions or deletions of 1..max_indel bases."""
+    q = bytearray(ref)
+    for p in rng.integers(0, len(q), snps):
+        q[p] = ACGT[rng.integers(0, 4)]
+    if n_run:
+        s = int(rng.integers(0, len(q) - n_run))
+        q[s:s + n_run] = b"N" * n_run
+    for _ in range(indels):
+        p = int(rng.integers(0, len(q) - max_indel))
+        ln = int(rng.integers(1, max_indel + 1))
+        if rng.random() < 0.5:
+            del q[p:p + ln]
+        else:
+            q[p:p] = ACGT[rng.integers(0, 4, ln)].tobytes()
+    return bytes(q)
+
+
+def write_records(path: Path, recs) -> None:
+    with open(path, "wb") as f:
+        f.write(b"".join(b">%s\n%s\n" % (name.encode(), seq)
+                         for name, seq in recs))
+
+
+def read_xz_records(path: Path) -> list[bytes]:
+    """The records of a FASTA .xz file, each '>name\nseq\n' as bytes."""
+    text = lzma.decompress(path.read_bytes())
+    return [b">" + r for r in text.split(b">")[1:]]
+
+
+def oracle_score(ref: bytes, q: bytes) -> int:
+    """Optimal global affine-gap cost (match 0, mismatch 4, gap 6+2g),
+    dense O(nm): tests/test_gotoh.py:oracle_score on Python lists."""
+    X, O, E, BIG = 4, 6, 2, 10**9
+    n, m = len(ref), len(q)
+    M = [[BIG] * (m + 1) for _ in range(n + 1)]
+    Dx = [[BIG] * (m + 1) for _ in range(n + 1)]  # gap consuming ref
+    Iy = [[BIG] * (m + 1) for _ in range(n + 1)]  # gap consuming query
+    M[0][0] = 0
+    for j in range(1, m + 1):
+        Iy[0][j] = O + E * j
+    for i in range(1, n + 1):
+        Dx[i][0] = O + E * i
+    H = lambda i, j: min(M[i][j], Dx[i][j], Iy[i][j])
+    for i in range(1, n + 1):
+        for j in range(1, m + 1):
+            sub = 0 if ref[i - 1] == q[j - 1] else X
+            M[i][j] = H(i - 1, j - 1) + sub
+            Dx[i][j] = min(H(i - 1, j) + O + E, Dx[i - 1][j] + E)
+            Iy[i][j] = min(H(i, j - 1) + O + E, Iy[i][j - 1] + E)
+    return H(n, m)
+
+
+def gotoh_batch(rng, ref: bytes, B: int, m_pad: int):
+    """(q (B, m_pad), qlen (B,)) of mutants of `ref`: 30 SNPs, 1-3
+    indels of 1-30 bases, a 200-300-base N run on every third row."""
+    arr = np.zeros((B, m_pad), np.uint8)
+    lens = np.zeros(B, np.int32)
+    for b in range(B):
+        q = mutate(rng, ref, snps=30, indels=int(rng.integers(1, 4)),
+                   n_run=int(rng.integers(200, 301)) if b % 3 == 0 else 0)
+        arr[b, :len(q)] = np.frombuffer(q, np.uint8)
+        lens[b] = len(q)
+    return arr, lens
+
+
+def timed_once(fn):
+    """(fn(), milliseconds) from CUDA events around one call."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def phase_gotoh(dev, rng, records: dict) -> None:
+    """Both banded Gotoh kernels vs their plain versions on the same
+    tensors: B=64 at the first band level (lo, W) = (-64, 129), and B=4
+    at W=4097; exact equality of tb at every cell, score, t_end and
+    edge.  Kernel times are medians over repeated launches, the plain
+    versions' one call each (a Python loop of ~30 launches per row)."""
+    ref = ACGT[rng.integers(0, 4, N_REF)].tobytes()
+    ref_d = torch.from_numpy(np.frombuffer(ref, np.uint8).copy()).to(dev)
+    for B, lo, W in ((64, -64, 129), (4, -2048, 4097)):
+        arr, lens = gotoh_batch(rng, ref, B, N_REF + 256)
+        q_d = torch.from_numpy(arr).to(dev)
+        ql_d = torch.from_numpy(lens).to(dev)
+        args = (ref_d, q_d, ql_d, lo, W)
+        for name, fn, plain in (
+                ("gotoh_forward", gotoh_kernels.gotoh_forward,
+                 gotoh_kernels.gotoh_forward_plain),
+                ("gotoh_score", gotoh_kernels.gotoh_score,
+                 gotoh_kernels.gotoh_score_plain)):
+            want, plain_ms = timed_once(lambda: plain(*args))
+            err = max_err(fn(*args), want)
+            del want
+            ms = timed_ms(lambda: fn(*args), reps=3)
+            log(f"  {name} B={B} n={N_REF} lo={lo} W={W}: max_abs_err={err}"
+                f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+            if W == 129:
+                records[name].update(max_abs_err=err, ms=ms,
+                                     plain_ms=plain_ms)
+        del q_d
+        torch.cuda.empty_cache()
+
+
+def phase_align_oracle(dev, rng) -> int:
+    """align_batch (forward kernel + event traceback + host decode) and
+    the score-only kernel on the card against the O(nm) oracle; returns
+    gotoh_score's launches over this phase."""
+    n, B, lo, W = 400, 16, -64, 129
+    ref = ACGT[rng.integers(0, 4, n)].tobytes()
+    qs = [mutate(rng, ref, snps=int(rng.integers(0, 10)),
+                 indels=int(rng.integers(0, 3)), max_indel=12)
+          for _ in range(B)]
+    arr = np.zeros((B, max(map(len, qs))), np.uint8)
+    for b, q in enumerate(qs):
+        arr[b, :len(q)] = np.frombuffer(q, np.uint8)
+    lens = np.array([len(q) for q in qs], np.int32)
+    want = np.array([oracle_score(ref, q) for q in qs])
+    gotoh_kernels.gotoh_score.launches = 0
+    ref_a = np.frombuffer(ref, np.uint8)
+    aligned, score, ok, _, _ = gotoh.align_batch(ref_a, arr, lens, lo, W,
+                                                 device=dev)
+    score2, _ = gotoh_kernels.gotoh_score(
+        *(torch.from_numpy(x).to(dev) for x in (ref_a.copy(), arr, lens)),
+        lo, W)
+    launches = gotoh_kernels.gotoh_score.launches
+    if not ok.all():
+        raise AssertionError(f"align_batch rows not ok: {np.nonzero(~ok)}")
+    if not (np.array_equal(score, want)
+            and np.array_equal(score2.cpu().numpy(), want)):
+        raise AssertionError(f"scores {score} / {score2} != oracle {want}")
+    if aligned.shape != (B, n):
+        raise AssertionError(f"aligned rows {aligned.shape} != {(B, n)}")
+    log(f"  align_batch and gotoh_score vs oracle: n={n} B={B} W={W}: "
+        f"{B} scores equal (max {want.max()}), every row ok")
+    return launches
+
+
+def align_queries(rng, ref: bytes, count: int):
+    """(name, seq) records: ~30 SNPs each and 1-30-base indels on ~30%;
+    from record 64 on also a 200-300-base N run on every fourth and
+    truncated or extended ends (up to 300 bases) on ~5%.  The first 64
+    stay at the first band level, so the `--device cpu` run of them is
+    one (B=64, W=129) forward.  Records 100-103 take the remaining
+    branches: a too-short and a too-ambiguous one (QC), one with 110
+    one-base deletions (more than EV_CAP/2 gap runs: the dense walk)
+    and one whose 150-base insertion is cancelled by a 150-base
+    deletion (net offset 0, but the path escapes the first bands)."""
+    n = len(ref)
+    recs = []
+    for k in range(count):
+        q = mutate(rng, ref, snps=30,
+                   n_run=int(rng.integers(200, 301))
+                   if k >= 64 and k % 4 == 0 else 0,
+                   indels=int(rng.random() < 0.3) * int(rng.integers(1, 3)))
+        if k >= 64 and rng.random() < 0.05:
+            cut = int(rng.integers(1, 301))
+            q = (q[cut:] if rng.random() < 0.5
+                 else q + ACGT[rng.integers(0, 4, cut)].tobytes())
+        recs.append((f"q{k}", q))
+    recs[100] = ("short", ref[: n // 2])
+    recs[101] = ("ambiguous", b"N" * (6 * n // 10) + ref[6 * n // 10:])
+    gapped = bytearray(ref)
+    for p in range(n - 200, 100, -(n - 300) // 110)[:110]:
+        del gapped[p]
+    recs[102] = ("gapped", bytes(gapped))
+    ins = ACGT[rng.integers(0, 4, 150)].tobytes()
+    a, b = 3 * n // 10, 2 * n // 3
+    recs[103] = ("wander", ref[:a] + ins + ref[a:b] + ref[b + 150:])
+    return recs
+
+
+def phase_align_scale(dev, card: str, work: dict) -> int:
+    """`align` through the command line at scale on the card; returns
+    gotoh_forward's launches over the run."""
+    pool = 1024
+    ref, q_fa, n_q = work["ref"], work["q_fa"], work["count"]
+    calls = {"dense": 0, "escalate": 0, "cap_band": 0}
+
+    def counting(fn, key, when=lambda *a, **kw: True):
+        def wrapped(*a, **kw):
+            if when(*a, **kw):
+                calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    orig = (gotoh.align_rows_dense, align._align_group, align._choose_band)
+    gotoh.align_rows_dense = counting(orig[0], "dense")
+    align._align_group = counting(orig[1], "escalate",
+                                  lambda *a, exact=False, **kw: not exact)
+    align._choose_band = counting(orig[2], "cap_band")
+    stats_holder = {}
+    run = align.run_align
+
+    def keep_stats(*a, **kw):
+        stats_holder["s"] = run(*a, **kw)
+        return stats_holder["s"]
+
+    align.run_align = keep_stats
+    out = WORK / "al_cuda"
+    try:
+        gotoh_kernels.gotoh_forward.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(["align", "-r", str(WORK / "al_ref.fa"), str(q_fa),
+                       "-p", str(pool), "-o", str(out), "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = gotoh_kernels.gotoh_forward.launches
+    finally:
+        (gotoh.align_rows_dense, align._align_group,
+         align._choose_band) = orig
+        align.run_align = run
+    if rc != 0:
+        raise AssertionError(f"align exited {rc}")
+    st = stats_holder["s"]
+    log(f"  align: {n_q} queries x {len(ref)} bp, pool={pool}: {wall:.3f} s "
+        f"wall, {n_q / wall:,.1f} seqs/s ({card})")
+    log(f"  AlignStats: count={st.count} n_output={st.n_output} "
+        f"rejected_length={st.rejected_length} rejected_ambiguity="
+        f"{st.rejected_ambiguity} failed_band={st.failed_band} uncertified="
+        f"{st.uncertified} exact_certified={st.exact_certified}; dense "
+        f"walks {calls['dense']}, escalations {calls['escalate']}, "
+        f"cap-band groups {calls['cap_band']}; gotoh_forward launches "
+        f"{launches}")
+    recs = work["cuda_recs"] = read_xz_records(
+        out.parent / (out.name + ".aln.xz"))
+    if len(recs) != st.n_output or st.n_output != st.count - 2:
+        raise AssertionError(f"{len(recs)} rows written, stats {st}")
+    if any(len(r.split(b"\n")[1]) != len(ref) for r in recs):
+        raise AssertionError("an emitted row does not have the reference "
+                             "length")
+    if st.uncertified or st.failed_band:
+        raise AssertionError(f"uncertified or failed rows: {st}")
+    if not (st.rejected_length and st.rejected_ambiguity
+            and all(calls.values())):
+        raise AssertionError(f"a branch was not taken: {st} {calls}")
+    if launches == 0:
+        raise AssertionError("gotoh_forward never launched in the run")
+    return launches
+
+
+def start_cpu_subset(rng, n_ref: int = N_REF, count: int = 2048) -> dict:
+    """Write phase 7's files (`count` queries against an `n_ref`-bp
+    reference) and start the port's `--device cpu` run on the first 64
+    QC-passing queries in a child process on one thread (its plain
+    row loop is launch-bound; more threads only slow the host-bound
+    phases it overlaps), so it runs while phases 2-7 use the card."""
+    ref = ACGT[rng.integers(0, 4, n_ref)].tobytes()
+    recs = align_queries(rng, ref, count)
+    write_records(WORK / "al_ref.fa", [("ref", ref)])
+    q_fa = WORK / "al_q.fa"
+    write_records(q_fa, recs)
+    write_records(WORK / "al_q64.fa", recs[:64])
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "uvaia_tpu_torch", "align", "-r",
+           str(WORK / "al_ref.fa"), str(WORK / "al_q64.fa"), "-o",
+           str(WORK / "al_cpu"), "--device", "cpu"]
+    with open(WORK / "al_cpu.log", "wb") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env,
+                                stdout=subprocess.DEVNULL, stderr=err)
+    return dict(ref=ref, q_fa=q_fa, count=count, proc=proc,
+                t0=time.perf_counter())
+
+
+def finish_cpu_subset(work: dict) -> None:
+    """Wait for the `--device cpu` child and compare its rows with the
+    card's first 64."""
+    rc = work["proc"].wait()
+    wall = time.perf_counter() - work["t0"]
+    if rc != 0:
+        raise AssertionError(f"align --device cpu exited {rc}: "
+                             + (WORK / "al_cpu.log").read_text()[-2000:])
+    cpu = read_xz_records(WORK / "al_cpu.aln.xz")
+    if len(cpu) != 64 or cpu != work["cuda_recs"][:64]:
+        raise AssertionError(f"--device cpu rows ({len(cpu)}) differ from "
+                             "the card's first 64")
+    log(f"  the first 64 rows are byte-equal under --device cuda and "
+        f"--device cpu (child process, {wall:.3f} s from its start)")
+
+
 
 def run(dev: torch.device, card: str) -> dict:
-    """Phases 1-5 on `dev`; returns the kernels' JSON records."""
+    """Phases 1-7 on `dev`; returns the kernels' JSON records."""
     WORK.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(2024)
     records = {name: dict(name=name, route="cuda", source=w["source"],
                           replaces=w["replaces"])
                for name, w in KERNELS.items()}
+    work = None
+    t_start = time.perf_counter()
+
+    def lap(name: str) -> None:
+        log(f"  {name} done at {time.perf_counter() - t_start:.1f} s")
+
     try:
         log("phase 1: build")
         t0 = time.perf_counter()
@@ -378,17 +705,35 @@ def run(dev: torch.device, card: str) -> dict:
         log(f"  built {_build.LIB_PATH.name} from "
             f"{len(_build._sources())} sources in "
             f"{time.perf_counter() - t0:.3f} s")
+        work = start_cpu_subset(np.random.default_rng(7))
         log("phase 2: kernels vs plain versions")
         phase_kernels(dev, rng, BATCH, L_SITES, (64, 1000, 7, 129), records)
+        lap("nearest kernels")
+        phase_gotoh(dev, rng, records)
+        lap("previous phase")
         log("phase 3: nearest vs oracle")
         phase_oracle(dev, rng, L_SITES)
+        lap("previous phase")
         log("phase 4: nearest at scale, prune on and off")
         counts = phase_scale(dev, rng, 16384, L_SITES, 64, 100, BATCH)
         for name, c in counts.items():
             records[name]["launches"] = c
+        lap("previous phase")
         log("phase 5: device-resident step rate")
         phase_steps(dev, rng, L_SITES, 64, BATCH, 50, 20, card)
+        lap("previous phase")
+        log("phase 6: align_batch and gotoh_score vs oracle")
+        records["gotoh_score"]["launches"] = phase_align_oracle(dev, rng)
+        lap("previous phase")
+        log("phase 7: align at scale, cuda vs cpu")
+        records["gotoh_forward"]["launches"] = phase_align_scale(
+            dev, card, work)
+        finish_cpu_subset(work)
+        lap("phase 7")
     finally:
+        if work is not None and work["proc"].poll() is None:
+            work["proc"].kill()
+            work["proc"].wait()
         shutil.rmtree(WORK, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms")

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions, and `nearest` on the card against `nearest` on the CPU.
+versions, and `nearest` and `align` on the card against the same runs
+on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no jax, so it also runs where jax is not installed, without
@@ -15,8 +16,9 @@ import pytest
 import torch
 
 from uvaia_tpu.core.encoding import encode
-from uvaia_tpu_torch.engine import nearest
+from uvaia_tpu_torch.engine import align, nearest
 from uvaia_tpu_torch.engine.query import QueryPack
+from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
 from uvaia_tpu_torch.ops import host, recon, scan, score_kernels as sk
 
 LETTERS = np.frombuffer(b"ACGTACGTACGTACGTN-RYMKSWBDHV", dtype=np.uint8)
@@ -126,3 +128,85 @@ def test_gpu_nearest_matches_cpu(cuda_device, tmp_path, monkeypatch, prune):
             nbest=7, pool=64, prune=prune, device=dev, output=dev))
     for ext in (".csv.xz", ".aln.xz"):
         assert filecmp.cmp("cuda" + ext, "cpu" + ext, shallow=False)
+
+
+def _dna(rng, n):
+    return LETTERS[rng.integers(0, 4, n)].tobytes()
+
+
+def _gotoh_inputs(rng, n, B, dev):
+    """ref (n,), q (B, m_pad), qlen (B,) on `dev`: SNPs, indels up to 30
+    bases, short and long ends, zero padding past every row."""
+    ref = _dna(rng, n)
+    qs = []
+    for b in range(B):
+        q = bytearray(ref)
+        for _ in range(int(rng.integers(0, 10))):
+            q[int(rng.integers(0, n))] = ord("ACGT"[int(rng.integers(0, 4))])
+        p, ln = int(rng.integers(0, n - 40)), int(rng.integers(1, 31))
+        if b % 2:
+            del q[p:p + ln]
+        else:
+            q[p:p] = _dna(rng, ln)
+        if b % 3 == 1:
+            q = q[:len(q) - int(rng.integers(1, 30))]
+        qs.append(bytes(q))
+    m_pad = max(map(len, qs)) + 29
+    arr = np.zeros((B, m_pad), np.uint8)
+    for b, q in enumerate(qs):
+        arr[b, :len(q)] = np.frombuffer(q, np.uint8)
+    lens = np.array([len(q) for q in qs], np.int32)
+    return [torch.from_numpy(x).to(dev)
+            for x in (np.frombuffer(ref, np.uint8).copy(), arr, lens)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lo,width,B", [
+    (300, -64, 129, 13), (80, -8, 17, 8), (300, -512, 1025, 3),
+    # H and X in shared memory, the query read from device memory
+    (2000, -7168, 14337, 2),
+    # an exact-fallback width: H and X in the device-memory scratch
+    (300, -7680, 15361, 2)])
+def test_gpu_gotoh_matches_plain(cuda_device, n, lo, width, B):
+    rng = np.random.default_rng(n + width)
+    args = _gotoh_inputs(rng, n, B, cuda_device)
+    before = gk.gotoh_forward.launches, gk.gotoh_score.launches
+    _equal(gk.gotoh_forward(*args, lo, width),
+           gk.gotoh_forward_plain(*args, lo, width))
+    _equal(gk.gotoh_score(*args, lo, width),
+           gk.gotoh_score_plain(*args, lo, width))
+    assert (gk.gotoh_forward.launches, gk.gotoh_score.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ev_cap", [gotoh.EV_CAP, 4])
+def test_gpu_align_matches_cpu(cuda_device, tmp_path, monkeypatch, ev_cap):
+    """align on the card writes the bytes the plain versions write on the
+    CPU: SNPs, indels, an N-heavy row certified beyond --band, a row
+    whose optimum wanders out of the routed band, a truncated row;
+    EV_CAP = 4 sends the gapped rows through the dense walk."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(gotoh, "EV_CAP", ev_cap)
+    rng = np.random.default_rng(17)
+    n = 900
+    ref = _dna(rng, n)
+    qs = [ref, ref[:100] + ref[104:], ref[:300] + b"ACG" + ref[300:],
+          b"N" * 300 + ref[300:], ref[:200] + _dna(rng, 120) + ref[200:500]
+          + ref[620:], ref[150:]]
+    for k in range(6):
+        q = bytearray(ref)
+        for p in (int(x) for x in rng.integers(0, n, 12)):
+            q[p] = ord("ACGT"[(q[p] + k) % 4])
+        del q[50 * (k + 1):50 * (k + 1) + k + 1]
+        qs.append(bytes(q))
+    with open("ref.fa", "wb") as f:
+        f.write(b">ref\n" + ref + b"\n")
+    _write("q.fa", "q", [np.frombuffer(q, np.uint8) for q in qs])
+    stats = {}
+    for dev in ("cuda", "cpu"):
+        stats[dev] = align.run_align("ref.fa", ["q.fa"], align.AlignConfig(
+            band=256, device=dev, output=dev))
+    assert stats["cuda"] == stats["cpu"]
+    assert stats["cuda"].n_output == len(qs)
+    assert filecmp.cmp("cuda.aln.xz", "cpu.aln.xz", shallow=False)

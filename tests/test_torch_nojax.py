@@ -1,6 +1,7 @@
 """The port's path needs no jax: in a process where importing jax or
 jaxlib raises, the package imports, `python -m uvaia_tpu_torch nearest
---device cpu --keep_resolved` runs to exit 0, and chip_smoke imports."""
+--device cpu --keep_resolved` and `python -m uvaia_tpu_torch align
+--device cpu` run to exit 0, and chip_smoke imports."""
 
 import subprocess
 import sys
@@ -30,13 +31,16 @@ sys.path.insert(0, sys.argv[1])
 
 import uvaia_tpu_torch  # noqa: F401,E402
 
-sys.argv = ["uvaia_tpu_torch", "nearest", "-r", "db.fa", "q.fa", "-n", "3",
-            "-p", "8", "--keep_resolved", "--device", "cpu", "-o", "nojax"]
-try:
-    runpy.run_module("uvaia_tpu_torch", run_name="__main__")
-except SystemExit as e:
-    if e.code not in (0, None):
-        raise
+for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
+              "--keep_resolved", "--device", "cpu", "-o", "nojax"],
+             ["align", "-r", "ref.fa", "q_al.fa", "--device", "cpu", "-o",
+              "nojax"]):
+    sys.argv = ["uvaia_tpu_torch", *argv]
+    try:
+        runpy.run_module("uvaia_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
 import chip_smoke  # noqa: F401,E402
 
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
@@ -53,6 +57,13 @@ def test_port_runs_without_jax(tmp_path):
     write_fasta(tmp_path / "q.fa", [f"q{i}" for i in range(len(qs))], qs)
     write_fasta(tmp_path / "db.fa", [f"r{i}" for i in range(20)],
                 random_seqs(rng, 20, L))
+    # align: a reference and three unaligned queries (SNP, deletion,
+    # insertion)
+    ref = qs[1].replace("-", "A").replace("N", "C")
+    write_fasta(tmp_path / "ref.fa", ["ref"], [ref])
+    write_fasta(tmp_path / "q_al.fa", ["a0", "a1", "a2"],
+                ["G" + ref[1:], ref[:100] + ref[103:],
+                 ref[:60] + "TTAG" + ref[60:]])
     r = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT)],
                        cwd=tmp_path, capture_output=True, text=True,
                        timeout=300)
@@ -60,3 +71,5 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX-OK" in r.stdout
     assert "after removing 1 redundant sequences" in r.stderr
     assert (tmp_path / "nojax.csv.xz").exists()
+    assert "Total: 3 read, 3 aligned" in r.stderr
+    assert (tmp_path / "nojax.aln.xz").exists()

@@ -39,6 +39,9 @@ _SIGNATURES = {
                            _P],
     "uvt_amb_corr": [_P, _P, _I, _I, _I, _P, _P, _P],
     "uvt_delta_rebuild": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "uvt_gotoh_forward": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                          _P, _P],
+    "uvt_gotoh_score": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
