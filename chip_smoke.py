@@ -5,17 +5,22 @@
 Phases (any failure exits non-zero, without the final result line):
   0. environment: card name and power limit, torch / CUDA versions,
      whether the native IO library loaded; fails without CUDA;
-  1. build the four CUDA kernels from uvaia_tpu_torch/csrc with nvcc;
+  1. build the CUDA kernels from uvaia_tpu_torch/csrc with nvcc (one
+     process a source, all started together);
   2. each kernel against its plain PyTorch version on the card, exact
      equality, at the shapes of the main path (B=4096 references of
-     L=29903 sites), with CUDA-event times of both;
+     L=29903 sites; the full-mode and --acgt counters at Q = 7, 64, 129
+     and 1000, the pair counters at Q=64), with CUDA-event times of both;
   3. `nearest` end to end on the card against an independent numpy
-     oracle (L=29903, Q=8, 2048 references, k=10);
+     oracle (L=29903, Q=8, 2048 references, k=10), in full mode and
+     with --acgt;
   4. `nearest` through its command line at scale: 16384 synthetic
      SARS-CoV-2-length genomes, 64 queries with ambiguity codes,
-     nbest=100, pool=4096, prune on and off — byte-equal CSVs, and
-     every kernel's launch counter > 0 over these two runs;
-  5. device-resident scan-step rate at L=29903, Q=64, B=4096, k=50;
+     nbest=100, pool=4096, prune on and off, in full mode and then with
+     --acgt — byte-equal CSVs within each mode, and every launch counter
+     of the mode's kernels > 0 over its two runs;
+  5. device-resident scan-step rate at L=29903, Q=64, B=4096, k=50, in
+     full mode and with --acgt;
   6. `align_batch` and the score-only forward on the card against an
      O(nm) numpy oracle (n=400, 16 queries with SNPs and indels);
   7. `align` through its command line at scale: 2048 synthetic
@@ -29,8 +34,11 @@ Phases (any failure exits non-zero, without the final result line):
 Phase 2 also holds the two banded Gotoh kernels against their plain
 versions (B=64 at the first band level W=129, and B=4 at W=4097).  Each
 kernel's launch count comes from the path that runs it: the nearest
-kernels from phase 4, `gotoh_score` from phase 6, `gotoh_forward` from
-phase 7, every count set to 0 just before its phase.
+kernels from phase 4 (full-mode ones from its full-mode pair, the
+--acgt ones from its --acgt pair), `gotoh_score` from phase 6,
+`gotoh_forward` from phase 7, every count set to 0 just before its
+runs.  No command runs `pair_counters` (nor, in the JAX package, the
+kernel it replaces): its count is its phase-2 launches.
 The line before the last is the card's `name, power.limit`; the line
 before it the kernels' JSON record; the last line is the result.
 Data comes from fixed seeds; files go to build/chip_smoke/ and are
@@ -99,9 +107,22 @@ KERNELS = {
         source="uvaia_tpu_torch/csrc/gotoh.cu",
         replaces="uvaia_tpu/ops/pallas_gotoh.py:33",
         wrapper=gotoh_kernels.gotoh_score),
+    "acgt_counters": dict(
+        source="uvaia_tpu_torch/csrc/acgt.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:334",
+        wrapper=score_kernels.acgt_counters),
+    "acgt_counters_packed": dict(
+        source="uvaia_tpu_torch/csrc/acgt.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:599",
+        wrapper=score_kernels.acgt_counters_packed),
+    "pair_counters": dict(
+        source="uvaia_tpu_torch/csrc/score.cu",
+        replaces="uvaia_tpu/ops/pallas_score.py:83",
+        wrapper=score_kernels.pair_counters),
 }
 NEAREST_KERNELS = ("score_counters", "score_counters_packed", "amb_corr",
                    "delta_rebuild")
+ACGT_KERNELS = ("acgt_counters", "acgt_counters_packed")
 N_REF = 29903          # the SARS-CoV-2 reference length
 
 
@@ -187,8 +208,22 @@ def max_err(a, b) -> float:
 # phases
 
 
+def check_kernel(name: str, fn, plain, args, shape: str) -> dict:
+    """fn(*args) against plain(*args) on the same tensors, exactly, with
+    CUDA-event times of both; logs one line, returns the record fields."""
+    err = max_err(fn(*args), plain(*args))
+    ms = timed_ms(lambda: fn(*args))
+    plain_ms = timed_ms(lambda: plain(*args), reps=3)
+    log(f"  {name} {shape}: max_abs_err={err} kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
-    """Each kernel vs its plain version on the same tensors."""
+    """Each nearest kernel vs its plain version on the same tensors: the
+    full-mode and --acgt counters (unpacked and packed) at every Q, the
+    corrections, the rebuild and the pair counters at Q=64."""
+    sk = score_kernels
     queries = query_set(rng, L, max(qs_list))
     refs = make_genomes(rng, B, L, queries, snps=20, amb=3, n_runs=2)
     codes = LUT[refs]
@@ -196,46 +231,50 @@ def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
     for Q in qs_list:
         qpath = WORK / f"k_q{Q}.fa"
         write_fasta(qpath, "q", queries[:Q])
-        pack = build_query_pack(str(qpath))
-        qd = scan.build_device_data(pack, k=10, device=dev)
-        r = scan._to_width(torch.from_numpy(codes).to(dev), qd.width)
-        args = (r, qd.q_full, qd.cons_full)
-        err = max_err(score_kernels.score_counters(*args),
-                      score_kernels.score_counters_plain(*args))
-        ms = timed_ms(lambda: score_kernels.score_counters(*args))
-        plain = timed_ms(lambda: score_kernels.score_counters_plain(*args),
-                         reps=3)
-        log(f"  score_counters B={B} W={qd.width} Q={pack.n_query}: "
-            f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        pargs = (packed_d, qd.q_full, qd.cons_full)
-        perr = max_err(score_kernels.score_counters_packed(*pargs),
-                       score_kernels.score_counters_packed_plain(*pargs))
-        pms = timed_ms(lambda: score_kernels.score_counters_packed(*pargs))
-        pplain = timed_ms(
-            lambda: score_kernels.score_counters_packed_plain(*pargs), reps=3)
-        log(f"  score_counters_packed B={B} P={packed_d.shape[1]} "
-            f"Q={pack.n_query}: max_abs_err={perr} kernel {pms:.3f} ms, "
-            f"plain {pplain:.3f} ms")
-        if Q == 64:
-            records["score_counters"].update(max_abs_err=err, ms=ms,
-                                             plain_ms=plain)
-            records["score_counters_packed"].update(max_abs_err=perr, ms=pms,
-                                                    plain_ms=pplain)
-            if qd.amb_sites is None:
-                raise AssertionError("the Q=64 pack has no ambiguity column")
-            ra = scan._take_fill(r, qd.amb_sites)
-            qa = scan._take_fill(qd.q_full, qd.amb_sites)
-            cerr = max_err(score_kernels.amb_corr(ra, qa),
-                           score_kernels.amb_corr_plain(ra, qa))
-            cms = timed_ms(lambda: score_kernels.amb_corr(ra, qa))
-            cplain = timed_ms(lambda: score_kernels.amb_corr_plain(ra, qa),
-                              reps=3)
-            log(f"  amb_corr B={B} A={ra.shape[1]} Q={pack.n_query}: "
-                f"max_abs_err={cerr} kernel {cms:.3f} ms, "
-                f"plain {cplain:.3f} ms")
-            records["amb_corr"].update(max_abs_err=cerr, ms=cms,
-                                       plain_ms=cplain)
-            phase_rebuild(dev, codes, qd, records)
+        for acgt in (False, True):
+            pack = build_query_pack(str(qpath), acgt=acgt)
+            qd = scan.build_device_data(pack, k=10, device=dev)
+            r = scan._to_width(torch.from_numpy(codes).to(dev), qd.width)
+            if acgt:
+                names = ACGT_KERNELS
+                plains = (sk.acgt_counters_plain,
+                          sk.acgt_counters_packed_plain)
+                q_args = (qd.q_full, qd.q_poly, qd.cons_full)
+            else:
+                names = ("score_counters", "score_counters_packed")
+                plains = (sk.score_counters_plain,
+                          sk.score_counters_packed_plain)
+                q_args = (qd.q_full, qd.cons_full)
+                full = (qd, r)
+            recs = [check_kernel(name, KERNELS[name]["wrapper"], plain,
+                                 (rows, *q_args), f"B={B} {dim} "
+                                 f"Q={pack.n_query}")
+                    for name, plain, rows, dim in zip(
+                        names, plains, (r, packed_d),
+                        (f"W={qd.width}", f"P={packed_d.shape[1]}"))]
+            if Q == 64:
+                for name, rec in zip(names, recs):
+                    records[name].update(rec)
+        if Q != 64:
+            continue
+        qd, r = full
+        if qd.amb_sites is None:
+            raise AssertionError("the Q=64 pack has no ambiguity column")
+        ra = scan._take_fill(r, qd.amb_sites)
+        qa = scan._take_fill(qd.q_full, qd.amb_sites)
+        records["amb_corr"].update(check_kernel(
+            "amb_corr", sk.amb_corr, sk.amb_corr_plain, (ra, qa),
+            f"B={B} A={ra.shape[1]} Q={qd.n_query}"))
+        phase_rebuild(dev, codes, qd, records)
+        # the pair counters at the natural site count (the wrapper pads
+        # to 64 sites)
+        sk.pair_counters.launches = 0
+        rows = torch.from_numpy(codes).to(dev)
+        qs = qd.q_full[:, :L].contiguous()
+        records["pair_counters"].update(check_kernel(
+            "pair_counters", sk.pair_counters, sk.pair_counters_plain,
+            (rows, qs), f"B={B} S={L} Q={qd.n_query}"),
+            launches=sk.pair_counters.launches)
 
 
 def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
@@ -251,18 +290,24 @@ def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
     pos, val = (torch.from_numpy(x).to(dev) for x in enc)
     if not bool((val >= 16).any()):
         raise AssertionError("the rebuild batch has no zero-run marker")
-    base_d = qd.delta_base
-    out = recon.delta_rebuild(pos, val, base_d, qd.width)
-    err = max_err(out, recon.delta_rebuild_plain(pos, val, base_d, qd.width))
+    args = (pos, val, qd.delta_base, qd.width)
+    out = recon.delta_rebuild(*args)
     want = np.where(ok[:, None], codes, base[None, :])
     if not np.array_equal(out[:, :codes.shape[1]].cpu().numpy(), want):
         raise AssertionError("delta_rebuild did not give back the rows")
-    ms = timed_ms(lambda: recon.delta_rebuild(pos, val, base_d, qd.width))
-    plain = timed_ms(
-        lambda: recon.delta_rebuild_plain(pos, val, base_d, qd.width), reps=3)
-    log(f"  delta_rebuild B={B} E={pos.shape[1]} w={qd.width}: "
-        f"max_abs_err={err} kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    records["delta_rebuild"].update(max_abs_err=err, ms=ms, plain_ms=plain)
+    records["delta_rebuild"].update(check_kernel(
+        "delta_rebuild", recon.delta_rebuild, recon.delta_rebuild_plain,
+        args, f"B={B} E={pos.shape[1]} w={qd.width}"))
+
+
+PURE = np.isin(np.arange(16), (1, 2, 4, 8))
+
+
+def rank_topk(scores: np.ndarray, k: int):
+    """(B, 6) scores -> the top k rows by lexicographic order, ties to
+    the lower index: (scores (k, 6), idx (k,))."""
+    order = np.lexsort(tuple(-scores[:, j] for j in range(5, -1, -1)))[:k]
+    return scores[order], order
 
 
 def oracle_topk(codes: np.ndarray, pack, k: int):
@@ -278,15 +323,34 @@ def oracle_topk(codes: np.ndarray, pack, k: int):
     idx_c, idx_mq = pack.idx_c, pack.idx_mq
     c = counters(pack.consensus[idx_c], codes[:, idx_c])
     valid_ref = (codes != 0).sum(1)
-    out_s, out_i = [], []
-    for qi in range(pack.n_query):
-        m = counters(pack.codes[qi, idx_mq], codes[:, idx_mq])
-        s = np.stack([c[0] + m[0], c[1] + m[1], c[2] + m[2], c[3] + m[3],
-                      m[0], valid_ref], axis=1)
-        order = np.lexsort(tuple(-s[:, j] for j in range(5, -1, -1)))[:k]
-        out_s.append(s[order])
-        out_i.append(order)
-    return np.stack(out_s), np.stack(out_i)
+    out = [rank_topk(np.stack([c[j] + m[j] for j in range(4)]
+                              + [m[0], valid_ref], axis=1), k)
+           for m in (counters(pack.codes[qi, idx_mq], codes[:, idx_mq])
+                     for qi in range(pack.n_query))]
+    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
+
+
+def oracle_topk_acgt(codes: np.ndarray, pack, k: int):
+    """oracle_topk for --acgt: ACGT mismatches and valid ACGT pairs over
+    the consensus sites, idx_m and the polymorphic idx, assembled as
+    uvaia's nearest.c:443-477 does (s4 = mismatches over the consensus
+    sites and idx_m, s5 = mismatches over idx)."""
+    def mismatches(a, r):                      # a (S,), r (B, S)
+        both = PURE[a][None, :] & PURE[r]
+        return (both & (a[None, :] != r)).sum(1), both.sum(1)
+    mm_c, va_c = mismatches(pack.consensus[pack.idx_c],
+                            codes[:, pack.idx_c])
+    valid_ref = (codes != 0).sum(1)
+    out = []
+    for a in pack.codes:
+        mm_m, va_m = mismatches(a[pack.idx_m], codes[:, pack.idx_m])
+        mm_p, va_p = mismatches(a[pack.idx], codes[:, pack.idx])
+        va = va_c + va_m + va_p
+        matches = va - (mm_c + mm_m + mm_p)
+        out.append(rank_topk(np.stack(
+            [matches, va, matches - (va_c - mm_c), valid_ref, mm_c + mm_m,
+             mm_p], axis=1), k))
+    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
 
 
 def phase_oracle(dev, rng, L: int) -> None:
@@ -298,22 +362,27 @@ def phase_oracle(dev, rng, L: int) -> None:
     refs = refs[(LUT[refs] != 0).sum(1) >= L // 2]
     write_fasta(WORK / "o_q.fa", "q", queries)
     write_fasta(WORK / "o_db.fa", "r", refs)
-    res = run_nearest([str(WORK / "o_db.fa")], str(WORK / "o_q.fa"),
-                      NearestConfig(nbest=k, pool=512, device=str(dev),
-                                    output=str(WORK / "o_out")))
-    pack = build_query_pack(str(WORK / "o_q.fa"))
-    want_s, want_i = oracle_topk(LUT[refs], pack, k)
-    if not (np.array_equal(res.indices, want_i)
-            and np.array_equal(res.scores, want_s)):
-        raise AssertionError("nearest top-k differs from the oracle")
-    log(f"  nearest vs oracle: L={L} Q={Q} refs={n} k={k}: top-k indices "
-        "and scores equal")
+    for acgt, oracle in ((False, oracle_topk), (True, oracle_topk_acgt)):
+        t0 = time.perf_counter()
+        res = run_nearest([str(WORK / "o_db.fa")], str(WORK / "o_q.fa"),
+                          NearestConfig(nbest=k, pool=512, device=str(dev),
+                                        acgt=acgt,
+                                        output=str(WORK / "o_out")))
+        pack = build_query_pack(str(WORK / "o_q.fa"), acgt=acgt)
+        want_s, want_i = oracle(LUT[refs], pack, k)
+        mode = "nearest --acgt" if acgt else "nearest"
+        if not (np.array_equal(res.indices, want_i)
+                and np.array_equal(res.scores, want_s)):
+            raise AssertionError(f"{mode} top-k differs from the oracle")
+        log(f"  {mode} vs oracle: L={L} Q={Q} refs={n} k={k}: top-k "
+            f"indices and scores equal ({time.perf_counter() - t0:.3f} s)")
 
 
 def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
                 pool: int) -> dict:
-    """Two CLI runs (prune on / off) at scale; returns the launch
-    counts over both runs."""
+    """Two CLI runs (prune on / off) at scale in full mode, then two with
+    --acgt, on the same files; returns the launch counts, each kernel's
+    over the two runs of its mode."""
     queries = query_set(rng, L, Q)
     refs = make_genomes(rng, n, L, queries, snps=25, amb=3, n_runs=2)
     # one row far from every query: more diffs than the largest delta
@@ -324,33 +393,50 @@ def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
     write_fasta(q_fa, "q", queries)
     write_fasta(db_fa, "r", refs)
     del refs
-    for name in NEAREST_KERNELS:
+    counts = {}
+    for acgt, names in ((False, NEAREST_KERNELS), (True, ACGT_KERNELS)):
+        counts.update(scale_pair(dev, q_fa, db_fa, n, L, Q, nbest, pool,
+                                 acgt, names))
+    return counts
+
+
+def scale_pair(dev, q_fa: Path, db_fa: Path, n: int, L: int, Q: int,
+               nbest: int, pool: int, acgt: bool, names) -> dict:
+    """One mode's prune / --no-prune pair: byte-equal CSVs of 1 + Q*nbest
+    rows under the mode's header, and every kernel in `names` launched
+    over the two runs; returns their launch counts."""
+    from uvaia_tpu_torch.engine.nearest import CSV_HEADER_ACGT, \
+        CSV_HEADER_FULL
+    mode_flag = ["--acgt"] if acgt else []
+    label = "nearest --acgt" if acgt else "nearest"
+    for name in names:
         KERNELS[name]["wrapper"].launches = 0
     csv = {}
     for mode, extra in (("prune", []), ("noprune", ["--no-prune"])):
-        out = WORK / f"s_{mode}"
+        out = WORK / f"s_{mode}{'_acgt' if acgt else ''}"
         argv = ["nearest", "-r", str(db_fa), str(q_fa), "-n", str(nbest),
                 "-p", str(pool), "-o", str(out), "--device", str(dev),
-                *extra]
+                *mode_flag, *extra]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if cli_main(argv) != 0:
-            raise AssertionError(f"nearest {mode} failed")
+            raise AssertionError(f"{label} {mode} failed")
         wall = time.perf_counter() - t0
         csv[mode] = (out.parent / (out.name + ".csv.xz")).read_bytes()
-        log(f"  nearest {mode}: {n} genomes x {L} sites, Q={Q}, "
+        log(f"  {label} {mode}: {n} genomes x {L} sites, Q={Q}, "
             f"nbest={nbest}, pool={pool}: {wall:.3f} s wall, "
             f"{n / wall:,.1f} genomes/s")
-    counts = {name: KERNELS[name]["wrapper"].launches
-              for name in NEAREST_KERNELS}
+    counts = {name: KERNELS[name]["wrapper"].launches for name in names}
     if csv["prune"] != csv["noprune"]:
-        raise AssertionError("prune and --no-prune CSVs differ")
-    rows = lzma.decompress(csv["prune"]).decode().strip().split("\n")
-    if len(rows) != 1 + Q * nbest:
-        raise AssertionError(f"CSV has {len(rows)} lines, want "
-                             f"{1 + Q * nbest}")
-    log(f"  prune and --no-prune CSVs byte-equal ({len(csv['prune'])} "
-        f"bytes); launches over both runs: {counts}")
+        raise AssertionError(f"{label}: prune and --no-prune CSVs differ")
+    rows = lzma.decompress(csv["prune"]).decode().split("\n")
+    if rows[0] + "\n" != (CSV_HEADER_ACGT if acgt else CSV_HEADER_FULL):
+        raise AssertionError(f"{label}: CSV header {rows[0]!r}")
+    if len(rows) - 1 != 1 + Q * nbest or rows[-1]:
+        raise AssertionError(f"{label}: CSV has {len(rows) - 1} lines, "
+                             f"want {1 + Q * nbest}")
+    log(f"  {label}: prune and --no-prune CSVs byte-equal "
+        f"({len(csv['prune'])} bytes); launches over both runs: {counts}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -363,34 +449,37 @@ def phase_steps(dev, rng, L: int, Q: int, B: int, k: int, steps: int,
     queries = query_set(rng, L, Q)
     refs = make_genomes(rng, B, L, queries, snps=25, amb=3, n_runs=2)
     write_fasta(WORK / "b_q.fa", "q", queries)
-    pack = build_query_pack(str(WORK / "b_q.fa"))
-    qd = scan.build_device_data(pack, k=k, device=dev)
     codes = LUT[refs]
     ok = np.ones(B, dtype=bool)
-    enc = host.delta_encode(codes, ok, qd.delta_base.cpu().numpy())
-    if enc is None:
-        raise AssertionError("the step batch did not fit the delta buckets")
-    pos, val = (torch.from_numpy(x).to(dev) for x in enc)
-    packed = torch.from_numpy(host.pack_codes(codes)).to(dev)
     ok_d = torch.from_numpy(ok).to(dev)
-    for name, step in (
-            ("scan_step_delta",
-             lambda st, i: scan.scan_step_delta(qd, st, pos, val, ok_d,
-                                                i * B)),
-            ("scan_step_packed",
-             lambda st, i: scan.scan_step_packed(qd, st, packed, ok_d,
-                                                 i * B))):
-        state = scan.init_state(Q, k, device=dev)
-        for i in range(3):
-            state, _ = step(state, i)
-        it = iter(range(3, 3 + steps))
-        holder = [state]
+    packed = torch.from_numpy(host.pack_codes(codes)).to(dev)
+    for acgt in (False, True):
+        pack = build_query_pack(str(WORK / "b_q.fa"), acgt=acgt)
+        qd = scan.build_device_data(pack, k=k, device=dev)
+        enc = host.delta_encode(codes, ok, qd.delta_base.cpu().numpy())
+        if enc is None:
+            raise AssertionError("the step batch did not fit the delta "
+                                 "buckets")
+        pos, val = (torch.from_numpy(x).to(dev) for x in enc)
+        for name, step in (
+                ("scan_step_delta",
+                 lambda st, i: scan.scan_step_delta(qd, st, pos, val, ok_d,
+                                                    i * B)),
+                ("scan_step_packed",
+                 lambda st, i: scan.scan_step_packed(qd, st, packed, ok_d,
+                                                     i * B))):
+            state = scan.init_state(pack.n_query, k, device=dev)
+            for i in range(3):
+                state, _ = step(state, i)
+            it = iter(range(3, 3 + steps))
+            holder = [state]
 
-        def one():
-            holder[0], _ = step(holder[0], next(it))
-        ms = timed_ms(one, reps=steps - 1)
-        log(f"  {name} L={L} Q={Q} B={B} k={k}: {ms:.3f} ms/step, "
-            f"{B / ms * 1e3:,.0f} genomes/s ({card})")
+            def one():
+                holder[0], _ = step(holder[0], next(it))
+            ms = timed_ms(one, reps=steps - 1)
+            log(f"  {name}{' --acgt' if acgt else ''} L={L} "
+                f"Q={pack.n_query} B={B} k={k}: {ms:.3f} ms/step, "
+                f"{B / ms * 1e3:,.0f} genomes/s ({card})")
 
 # ----------------------------------------------------------------------
 # align: synthetic unaligned genomes (letters)
@@ -711,15 +800,16 @@ def run(dev: torch.device, card: str) -> dict:
         lap("nearest kernels")
         phase_gotoh(dev, rng, records)
         lap("previous phase")
-        log("phase 3: nearest vs oracle")
+        log("phase 3: nearest vs oracle, full mode and --acgt")
         phase_oracle(dev, rng, L_SITES)
         lap("previous phase")
-        log("phase 4: nearest at scale, prune on and off")
+        log("phase 4: nearest at scale, prune on and off, full mode and "
+            "--acgt")
         counts = phase_scale(dev, rng, 16384, L_SITES, 64, 100, BATCH)
         for name, c in counts.items():
             records[name]["launches"] = c
         lap("previous phase")
-        log("phase 5: device-resident step rate")
+        log("phase 5: device-resident step rate, full mode and --acgt")
         phase_steps(dev, rng, L_SITES, 64, BATCH, 50, 20, card)
         lap("previous phase")
         log("phase 6: align_batch and gotoh_score vs oracle")

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions, and `nearest` and `align` on the card against the same runs
-on the CPU.
+versions, and `nearest` (full mode and --acgt) and `align` on the card
+against the same runs on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no jax, so it also runs where jax is not installed, without
@@ -36,9 +36,9 @@ def _codes(rng, n, L, mut=0.1):
     return np.stack([encode(s) for s in _alignment(rng, n, L, mut)])
 
 
-def _pack(rng, Q, L):
+def _pack(rng, Q, L, acgt=False):
     pack = QueryPack(names=[f"q{i}" for i in range(Q)],
-                     codes=_codes(rng, Q, L, 0.03), acgt=False, trim=0)
+                     codes=_codes(rng, Q, L, 0.03), acgt=acgt, trim=0)
     pack.create_indices()
     return pack
 
@@ -75,6 +75,32 @@ def test_gpu_counters_match_plain(cuda_device, Q):
     pk = torch.from_numpy(host.pack_codes(codes)).to(cuda_device)
     _equal(sk.score_counters_packed(pk, qd.q_full, qd.cons_full),
            sk.score_counters_packed_plain(pk, qd.q_full, qd.cons_full))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 7, 64, 129])
+@pytest.mark.parametrize("B", [33, 300])
+def test_gpu_acgt_and_pair_counters_match_plain(cuda_device, B, Q):
+    """The --acgt kernel, unpacked and packed, and the pair counters at
+    an odd site count (the wrapper pads to 64 sites), each launched once
+    and equal to its plain version."""
+    rng = np.random.default_rng(70 + B + Q)
+    L = 2501
+    qd = scan.build_device_data(_pack(rng, Q, L, acgt=True), k=5,
+                                device=cuda_device)
+    codes = _codes(rng, B, L)
+    r = scan._to_width(torch.from_numpy(codes).to(cuda_device), qd.width)
+    pk = torch.from_numpy(host.pack_codes(codes)).to(cuda_device)
+    q = (qd.q_full, qd.q_poly, qd.cons_full)
+    wrappers = (sk.acgt_counters, sk.acgt_counters_packed, sk.pair_counters)
+    before = [w.launches for w in wrappers]
+    _equal(sk.acgt_counters(r, *q), sk.acgt_counters_plain(r, *q))
+    _equal(sk.acgt_counters_packed(pk, *q),
+           sk.acgt_counters_packed_plain(pk, *q))
+    rs = torch.from_numpy(codes).to(cuda_device)
+    qs = qd.q_full[:, :L].contiguous()
+    _equal(sk.pair_counters(rs, qs), sk.pair_counters_plain(rs, qs))
+    assert [w.launches for w in wrappers] == [n + 1 for n in before]
 
 
 @pytest.mark.gpu
@@ -115,6 +141,22 @@ def test_gpu_rebuild_matches_plain(cuda_device, pos_dtype):
 def test_gpu_nearest_matches_cpu(cuda_device, tmp_path, monkeypatch, prune):
     """The whole slice on the card writes the bytes the plain versions
     write on the CPU."""
+    _nearest_cuda_vs_cpu(tmp_path, monkeypatch, prune)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prune", [True, False])
+def test_gpu_nearest_acgt_matches_cpu(cuda_device, tmp_path, monkeypatch,
+                                      prune):
+    """`nearest --acgt` on the card writes the CPU run's bytes, through
+    the --acgt kernels."""
+    before = sk.acgt_counters.launches + sk.acgt_counters_packed.launches
+    _nearest_cuda_vs_cpu(tmp_path, monkeypatch, prune, acgt=True)
+    assert sk.acgt_counters.launches + sk.acgt_counters_packed.launches \
+        > before
+
+
+def _nearest_cuda_vs_cpu(tmp_path, monkeypatch, prune, acgt=False):
     monkeypatch.chdir(tmp_path)
     rng = np.random.default_rng(5)
     L = 3000
@@ -125,7 +167,8 @@ def test_gpu_nearest_matches_cpu(cuda_device, tmp_path, monkeypatch, prune):
     _write("db.fa", "r", db)
     for dev in ("cuda", "cpu"):
         nearest.run_nearest(["db.fa"], "q.fa", nearest.NearestConfig(
-            nbest=7, pool=64, prune=prune, device=dev, output=dev))
+            nbest=7, pool=64, prune=prune, device=dev, output=dev,
+            acgt=acgt))
     for ext in (".csv.xz", ".aln.xz"):
         assert filecmp.cmp("cuda" + ext, "cpu" + ext, shallow=False)
 

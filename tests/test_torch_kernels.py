@@ -24,9 +24,9 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _counter_inputs(seed, Q, L=700, B=37):
+def _counter_inputs(seed, Q, L=700, B=37, acgt=False):
     rng = np.random.default_rng(seed)
-    pack = make_pack(rng, n_query=Q, L=L)
+    pack = make_pack(rng, n_query=Q, L=L, acgt=acgt)
     jqd = jscan.build_device_data(pack, k=5)
     refs = np.stack([encode(s) for s in random_alignment(rng, B, L, 0.1)])
     return jqd, refs
@@ -58,6 +58,60 @@ def test_counters_match_pallas_packed(Q):
     np.testing.assert_array_equal(torch.stack([aa, mm, vv], -1).numpy(),
                                   np.asarray(mats))
     np.testing.assert_array_equal(c5.numpy(), np.asarray(cons5))
+
+
+def _acgt_equal(got, mats, cons5):
+    np.testing.assert_array_equal(torch.stack(got[:4], -1).numpy(),
+                                  np.asarray(mats))
+    np.testing.assert_array_equal(got[4].numpy(), np.asarray(cons5))
+    assert all(t.dtype == torch.int32 for t in got)
+
+
+@pytest.mark.parametrize("Q", [6, 100])
+def test_acgt_counters_match_pallas(Q):
+    """The --acgt counters against _kernel_acgt_main + _kernel_acgt_poly
+    in interpret mode."""
+    jqd, refs = _counter_inputs(60 + Q, Q, acgt=True)
+    assert np.asarray(jqd.q_poly).any()
+    W = int(jqd.q_full.shape[1])
+    rc = np.pad(refs, ((0, 0), (0, W - refs.shape[1])))
+    mats, cons5 = pallas_score.mats_and_cons_acgt_via_pallas(
+        jnp.asarray(rc), jqd.q_full, jqd.q_poly, jqd.cons_full,
+        interpret=True)
+    _acgt_equal(sk.acgt_counters(_t(rc), _t(jqd.q_full), _t(jqd.q_poly),
+                                 _t(jqd.cons_full)), mats, cons5)
+
+
+@pytest.mark.parametrize("Q", [6, 100])
+def test_acgt_counters_match_pallas_packed(Q):
+    """The packed --acgt counters against the packed Pallas pair."""
+    jqd, refs = _counter_inputs(70 + Q, Q, L=701, acgt=True)  # a pad nibble
+    packed = host.pack_codes(refs)
+    mats, cons5 = pallas_score.mats_and_cons_acgt_via_pallas_packed(
+        jnp.asarray(packed), jqd.q_full, jqd.q_poly, jqd.cons_full,
+        interpret=True)
+    _acgt_equal(sk.acgt_counters_packed(_t(packed), _t(jqd.q_full),
+                                        _t(jqd.q_poly), _t(jqd.cons_full)),
+                mats, cons5)
+
+
+@pytest.mark.parametrize("B,Q,S", [(64, 16, 512), (37, 9, 500)])
+def test_pair_counters_match_pallas(B, Q, S):
+    """pair_counters (any S) against pair_counter_mats in interpret
+    mode, whose inputs are zero-padded to its tiles as
+    tests/test_pallas.py pads them."""
+    rng = np.random.default_rng(B + S)
+    refs = np.stack([encode(s) for s in random_alignment(rng, B, S, 0.1)])
+    qs = np.stack([encode(s) for s in random_alignment(rng, Q, S, 0.1)])
+    bt, qt, st = 32, 8, 128
+    r = np.pad(refs, ((0, -B % bt), (0, -S % st)))
+    q = np.pad(qs, ((0, -Q % qt), (0, -S % st)))
+    want = np.asarray(pallas_score.pair_counter_mats(
+        jnp.asarray(r), jnp.asarray(q), bt=bt, qt=qt, st=st,
+        interpret=True))[:B, :Q]
+    got = sk.pair_counters(_t(refs), _t(qs))
+    np.testing.assert_array_equal(torch.stack(got, -1).numpy(), want)
+    assert want[..., 1].any()
 
 
 @pytest.mark.parametrize("B,Q,A", [(37, 9, 40), (130, 70, 24)])
@@ -144,3 +198,27 @@ def test_wrappers_refuse_bad_inputs():
         recon.delta_rebuild(torch.zeros((2, 4), dtype=torch.int32),
                             torch.zeros((2, 4), dtype=torch.uint8),
                             torch.zeros(10, dtype=torch.uint8), 5)
+
+
+def test_new_wrappers_refuse_bad_inputs():
+    """The --acgt and pair wrappers check their inputs as the full-mode
+    ones do, and refuse a device that is neither cuda nor cpu."""
+    r = torch.zeros((4, 1024), dtype=torch.uint8)
+    q = torch.zeros((3, 1024), dtype=torch.uint8)
+    c = torch.zeros(1024, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="q_poly"):
+        sk.acgt_counters(r, q, torch.zeros((2, 1024), dtype=torch.uint8), c)
+    with pytest.raises(ValueError, match="sites"):
+        sk.acgt_counters(r[:, :1000].contiguous(), q, q, c)
+    with pytest.raises(ValueError, match="more"):
+        sk.acgt_counters_packed(torch.zeros((4, 513), dtype=torch.uint8),
+                                q, q, c)
+    with pytest.raises(ValueError, match="uint8"):
+        sk.pair_counters(r.to(torch.int32), q)
+    with pytest.raises(ValueError, match="sites"):
+        sk.pair_counters(r[:, :1000].contiguous(), q)
+    meta = [t.to("meta") for t in (r, q, c)]
+    with pytest.raises(ValueError, match="device meta"):
+        sk.acgt_counters(meta[0], meta[1], meta[1], meta[2])
+    with pytest.raises(ValueError, match="device meta"):
+        sk.pair_counters(meta[0], meta[1])

@@ -1,8 +1,10 @@
-"""`nearest` end to end: the port (uvaia_tpu_torch, plain versions on
-the CPU) against the JAX package (uvaia_tpu) on the same files.  The
-CSV and .aln dump bytes must be equal."""
+"""`nearest` end to end, in full mode and with --acgt: the port
+(uvaia_tpu_torch, plain versions on the CPU) against the JAX package
+(uvaia_tpu) on the same files.  The CSV and .aln dump bytes must be
+equal."""
 
 import filecmp
+import lzma
 import shutil
 
 import numpy as np
@@ -57,6 +59,14 @@ def test_fasta_outputs_match_jax(tmp_path, monkeypatch, prune, trim):
 
 
 @pytest.mark.parametrize("prune", [True, False])
+@pytest.mark.parametrize("trim", [0, 17])
+def test_acgt_fasta_outputs_match_jax(tmp_path, monkeypatch, prune, trim):
+    _files(tmp_path, monkeypatch)
+    res = _run_both(["db.fa"], prune=prune, trim=trim, acgt=True)
+    assert res.n_saved > 0 and res.pack.acgt
+
+
+@pytest.mark.parametrize("prune", [True, False])
 def test_store_outputs_match_jax(tmp_path, monkeypatch, prune):
     """A store written by uvaia_tpu ingest, with --keep_resolved and
     --exclude_self on top."""
@@ -65,6 +75,17 @@ def test_store_outputs_match_jax(tmp_path, monkeypatch, prune):
     res = _run_both(["db.uvst"], prune=prune, keep_resolved=True,
                     exclude_self=True)
     assert res.pack.n_query == 4          # the redundant copy is dropped
+
+
+@pytest.mark.parametrize("prune", [True, False])
+def test_acgt_store_outputs_match_jax(tmp_path, monkeypatch, prune):
+    """--acgt on a store, with --keep_resolved (whose redundancy test
+    counts pure sites only in this mode) and --exclude_self."""
+    _files(tmp_path, monkeypatch)
+    ingest(["db.fa"], "db.uvst")
+    res = _run_both(["db.uvst"], prune=prune, keep_resolved=True,
+                    exclude_self=True, acgt=True)
+    assert res.pack.n_query == 4
 
 
 @pytest.mark.parametrize("codec,suffix", [("bz2", ".bz2"), ("gz", ".gz"),
@@ -97,6 +118,17 @@ def test_port_resumes_jax_checkpoint(tmp_path, monkeypatch, prune):
     """uvaia_tpu crashes after a checkpoint; the port resumes the same
     snapshot to the bytes uvaia_tpu's own resume writes."""
     _files(tmp_path, monkeypatch, nr=70, L=400, seed=77)
+    _resume_jax_checkpoint(monkeypatch, prune)
+
+
+@pytest.mark.parametrize("prune", [True, False])
+def test_port_resumes_jax_acgt_checkpoint(tmp_path, monkeypatch, prune):
+    """test_port_resumes_jax_checkpoint for an --acgt run."""
+    _files(tmp_path, monkeypatch, nr=70, L=400, seed=79)
+    _resume_jax_checkpoint(monkeypatch, prune, acgt=True)
+
+
+def _resume_jax_checkpoint(monkeypatch, prune, acgt=False):
     target = "flush_survivors" if prune else "scan_step_delta"
     orig = getattr(jnearest.scan, target)
     count = {"n": 0}
@@ -109,7 +141,7 @@ def test_port_resumes_jax_checkpoint(tmp_path, monkeypatch, prune):
 
     monkeypatch.setattr(jnearest.scan, target, crashing)
     kw = dict(nbest=5, pool=16, prune=prune, checkpoint="c.ckpt",
-              output="jres")
+              output="jres", acgt=acgt)
     with pytest.raises(_Boom):
         jnearest.run_nearest(["db.fa"], "q.fa", jnearest.NearestConfig(
             checkpoint_every=0.0, **kw))
@@ -125,7 +157,8 @@ def test_port_resumes_jax_checkpoint(tmp_path, monkeypatch, prune):
     _same_outputs("jres", "pres")
     # and the resumed table is the uninterrupted one
     pnearest.run_nearest(["db.fa"], "q.fa", pnearest.NearestConfig(
-        nbest=5, pool=16, prune=prune, output="full", device="cpu"))
+        nbest=5, pool=16, prune=prune, output="full", device="cpu",
+        acgt=acgt))
     assert filecmp.cmp("full.csv.xz", "pres.csv.xz", shallow=False)
 
 
@@ -160,8 +193,8 @@ def test_port_checkpoint_resumes_in_port(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--acgt"], ["--devices", "2"], ["--site-shards", "2"],
-    ["--num-hosts", "2"], ["--device", "cuda"]])
+    ["--devices", "2"], ["--site-shards", "2"], ["--num-hosts", "2"],
+    ["--device", "cuda"], ["--acgt", "--device", "cuda"]])
 def test_cli_refuses_unported_and_missing_gpu(tmp_path, monkeypatch,
                                               extra):
     _files(tmp_path, monkeypatch, nr=10, L=200)
@@ -182,3 +215,17 @@ def test_cli_runs_on_cpu(tmp_path, monkeypatch):
     jnearest.run_nearest(["db.fa"], "q.fa", jnearest.NearestConfig(
         nbest=4, pool=8, output="jax"))
     _same_outputs("cli", "jax")
+
+
+def test_cli_runs_acgt_on_cpu(tmp_path, monkeypatch, capsys):
+    """`nearest --acgt --device cpu` through the port's command line
+    writes uvaia_tpu's bytes and header, and logs the --acgt mode line."""
+    _files(tmp_path, monkeypatch, nr=30, L=300)
+    assert port_main(["nearest", "-r", "db.fa", "q.fa", "-n", "4", "-p",
+                      "8", "-o", "cli", "--acgt", "--device", "cpu"]) == 0
+    assert "Considering ACGT differences only" in capsys.readouterr().err
+    jnearest.run_nearest(["db.fa"], "q.fa", jnearest.NearestConfig(
+        nbest=4, pool=8, output="jax", acgt=True))
+    _same_outputs("cli", "jax")
+    with lzma.open("cli.csv.xz", "rt") as fh:
+        assert fh.readline() == pnearest.CSV_HEADER_ACGT

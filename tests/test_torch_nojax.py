@@ -1,7 +1,8 @@
 """The port's path needs no jax: in a process where importing jax or
 jaxlib raises, the package imports, `python -m uvaia_tpu_torch nearest
---device cpu --keep_resolved` and `python -m uvaia_tpu_torch align
---device cpu` run to exit 0, and chip_smoke imports."""
+--device cpu --keep_resolved` (in full mode and with --acgt) and
+`python -m uvaia_tpu_torch align --device cpu` run to exit 0, and
+chip_smoke imports."""
 
 import subprocess
 import sys
@@ -33,6 +34,9 @@ import uvaia_tpu_torch  # noqa: F401,E402
 
 for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
               "--keep_resolved", "--device", "cpu", "-o", "nojax"],
+             ["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
+              "--keep_resolved", "--acgt", "--device", "cpu", "-o",
+              "nojax_acgt"],
              ["align", "-r", "ref.fa", "q_al.fa", "--device", "cpu", "-o",
               "nojax"]):
     sys.argv = ["uvaia_tpu_torch", *argv]
@@ -71,5 +75,7 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX-OK" in r.stdout
     assert "after removing 1 redundant sequences" in r.stderr
     assert (tmp_path / "nojax.csv.xz").exists()
+    assert (tmp_path / "nojax_acgt.csv.xz").exists()
+    assert "Considering ACGT differences only" in r.stderr
     assert "Total: 3 read, 3 aligned" in r.stderr
     assert (tmp_path / "nojax.aln.xz").exists()

@@ -76,10 +76,24 @@ def test_device_data_round_trip(amb):
             np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
 
 
-def test_device_data_refuses_acgt():
-    pack = make_pack(np.random.default_rng(4), n_query=3, L=300, acgt=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scan.build_device_data(pack, k=3)
+@pytest.mark.parametrize("trim", [0, 13])
+def test_device_data_round_trip_acgt(trim):
+    """An --acgt pack: no ambiguity columns, a q_poly, and
+    device_data_from_numpy carries the JAX package's q_poly across."""
+    pack = make_pack(np.random.default_rng(4), n_query=5, L=300, acgt=True,
+                     trim=trim)
+    jqd, qd = _both(pack, 3)
+    carried = scan.device_data_from_numpy(_jax_fields(jqd), "cpu")
+    assert qd.acgt and carried.acgt and qd.amb_sites is None
+    assert np.asarray(jqd.q_poly).any()
+    for name in scan._ARRAYS:
+        want = getattr(jqd, name)
+        for got in (getattr(qd, name), getattr(carried, name)):
+            if want is None:
+                assert got is None, name
+                continue
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                          err_msg=name)
 
 
 @pytest.mark.parametrize("Q", [1, 7, 64, 129])
@@ -102,6 +116,27 @@ def test_score_planes_match_jax(Q, trim, amb):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("Q", [1, 7, 64, 129])
+@pytest.mark.parametrize("trim", [0, 13])
+def test_acgt_score_planes_match_jax(Q, trim):
+    """--acgt planes (the s4/s5 split) and valid-site counts, unpacked and
+    packed, against the JAX package's XLA path."""
+    rng = np.random.default_rng(200 + Q + trim)
+    L = 600
+    pack = make_pack(rng, n_query=Q, L=L, acgt=True, trim=trim)
+    jqd, qd = _both(pack, 5)
+    refs = np.stack([encode(s) for s in random_alignment(rng, 21, L, 0.05)])
+    want, want_valid = jscan.score_batch_planes(jqd, jnp.asarray(refs))
+    for got, got_valid in (
+            scan.score_batch_planes(qd, _t(refs)),
+            scan.score_batch_planes_packed(qd, _t(host.pack_codes(refs)))):
+        for g, w in zip(got, want, strict=True):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(got_valid.numpy(),
+                                      np.asarray(want_valid))
+    assert np.asarray(want[5]).any() or Q == 1
+
+
 def _stream(rng, L, n, dup_every=3):
     """n reference rows in which every dup_every-th row repeats an
     earlier one, so equal six-score keys (ties) occur."""
@@ -119,8 +154,22 @@ def test_merge_topk_matches_jax(B, L):
     top-k as the JAX package.  B=300 exercises the 256-row candidate
     window and the full merge; L >= 2**15 the six unpacked sort keys."""
     rng = np.random.default_rng(21 + B)
-    k, n = 6, 3 * B - 5
-    pack = _pack(rng, 5, L)
+    _stream_both(rng, _pack(rng, 5, L), B)
+
+
+@pytest.mark.parametrize("trim", [0, 13])
+@pytest.mark.parametrize("B", [16, 300])
+def test_acgt_streamed_topk_matches_jax(B, trim):
+    """test_merge_topk_matches_jax for an --acgt pack; at B=300 the odd
+    batch travels packed."""
+    rng = np.random.default_rng(31 + B + trim)
+    _stream_both(rng, make_pack(rng, n_query=5, L=500, acgt=True,
+                                trim=trim), B, packed=B == 300)
+
+
+def _stream_both(rng, pack, B, packed=False):
+    k, L = 6, pack.n_sites
+    n = 3 * B - 5
     jqd, qd = _both(pack, k)
     assert qd.pack_keys == (L < 2**15)
     refs = _stream(rng, L, n)
@@ -133,7 +182,8 @@ def test_merge_topk_matches_jax(B, L):
         batch[:m] = refs[start:start + m]
         ok = np.zeros(B, dtype=bool)
         ok[:m] = True
-        enc = host.delta_encode(batch, ok, base) if step % 2 else None
+        enc = host.delta_encode(batch, ok, base) \
+            if step % 2 and not packed else None
         if enc is not None:
             pos, val = enc
             jstate, jflags = jscan.scan_step_delta(
@@ -180,8 +230,20 @@ def test_select_topk_ties_first_seen():
 
 def test_prune_step_matches_jax():
     rng = np.random.default_rng(31)
-    L, k, B = 500, 4, 64
-    pack = _pack(rng, 6, L, trim=17)
+    _prune_both(rng, _pack(rng, 6, 500, trim=17))
+
+
+@pytest.mark.parametrize("trim", [0, 13])
+def test_acgt_prune_step_matches_jax(trim):
+    """The --acgt bound (s1 <= min of the pure totals) prunes the same
+    rows as the JAX package's."""
+    rng = np.random.default_rng(33 + trim)
+    _prune_both(rng, make_pack(rng, n_query=6, L=500, acgt=True, trim=trim))
+
+
+def _prune_both(rng, pack):
+    k, B = 4, 64
+    L = pack.n_sites
     jqd, qd = _both(pack, k)
     # a first batch of the queries themselves sets high thresholds; the
     # second mixes near copies of them with unrelated rows

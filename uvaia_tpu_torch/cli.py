@@ -2,10 +2,10 @@
 nearest|align``.
 
 The flags are uvaia_tpu's own (the subcommand parsers of
-``uvaia_tpu.cli.main``), plus ``--device {cuda,cpu}``.  Options whose
-paths are not ported yet (``nearest --acgt``, ``--devices > 1``,
-``--site-shards > 1``, ``--num-hosts > 1``) exit with an error instead
-of running elsewhere.
+``uvaia_tpu.cli.main``), plus ``--device {cuda,cpu}``; ``nearest`` runs
+in full mode and with ``--acgt``.  Options whose paths are not ported
+yet (``--devices > 1``, ``--site-shards > 1``, ``--num-hosts > 1``)
+exit with an error instead of running elsewhere.
 The port reads stores written by ``uvaia_tpu ingest``.  Exit codes are
 uvaia_tpu's: 2 for a file that cannot be opened or written, 130 on
 interrupt, and a quiet 0 when a reader closes the output pipe.

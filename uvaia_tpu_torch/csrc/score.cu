@@ -1,6 +1,8 @@
 // Full-mode pair counters: the hand-written Hopper kernel that replaces
 // uvaia_tpu/ops/pallas_score.py:_kernel_full (unpacked reference codes)
-// and :_kernel_full_packed (4-bit packed reference codes).
+// and :_kernel_full_packed (4-bit packed reference codes); with the
+// consensus epilogue compiled out (kCons = false) it replaces
+// pallas_score.py:_kernel, the pair counters alone.
 //
 // For every (reference b, query q) over the sites s < W:
 //   aa[b, q] = sum_s [r == q, r a pure base]   (ACGT matches)
@@ -29,7 +31,7 @@
 // in shared memory, with the derived words (pure-only, non-zero)
 // computed once at staging so the inner loop is AND/POPC/ADD only, and
 // every thread accumulates 2 x 4 pairs in registers.  The consensus
-// counters come from the blockIdx.y == 0 CTAs.
+// counters come from the blockIdx.y == 0 CTAs (kCons only).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -45,31 +47,7 @@ constexpr int kThreads = 256;      // 16 query lanes x 16 reference lanes
 constexpr int kRPT = kBT / 16;     // references per thread
 constexpr int kQPT = kQT / 16;     // queries per thread
 
-// Four codes at sites [site, site + 4) of reference row b (byte j of
-// the word is site + j).  Unpacked rows are W bytes (site + 4 <= W);
-// packed rows are rw bytes holding sites 0 .. 2*rw - 1, even site in
-// the high nibble, and sites past the row read code 0.
-template <bool kPacked>
-__device__ __forceinline__ uint32_t load_ref_word(const uint8_t* r, long rw,
-                                                  int b, int B, int site) {
-  if (b >= B) return 0;
-  const uint8_t* row = r + (long)b * rw;
-  if (!kPacked) return *reinterpret_cast<const uint32_t*>(row + site);
-  long k = site >> 1;
-  uint32_t b0 = k < rw ? row[k] : 0;
-  uint32_t b1 = k + 1 < rw ? row[k + 1] : 0;
-  return (b0 >> 4) | ((b0 & 15u) << 8) | ((b1 >> 4) << 16) |
-         ((b1 & 15u) << 24);
-}
-
-__device__ __forceinline__ int sum16(int v) {
-  // sum over the 16 lanes that share a threadIdx.x / 16 row of a warp
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <bool kPacked>
+template <bool kPacked, bool kCons>
 __global__ void __launch_bounds__(kThreads)
 score_counters_kernel(const uint8_t* __restrict__ r, long rw,
                       const uint8_t* __restrict__ q,
@@ -84,7 +62,7 @@ score_counters_kernel(const uint8_t* __restrict__ r, long rw,
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
   const int b0 = blockIdx.x * kBT, q0 = blockIdx.y * kQT;
-  const bool do_cons = blockIdx.y == 0;
+  const bool do_cons = kCons && blockIdx.y == 0;
 
   int acc_aa[kRPT][kQPT] = {}, acc_mm[kRPT][kQPT] = {},
       acc_vv[kRPT][kQPT] = {};
@@ -94,7 +72,8 @@ score_counters_kernel(const uint8_t* __restrict__ r, long rw,
   for (int s0 = 0; s0 < W; s0 += 4 * kSW) {
     for (int i = tid; i < kBT * kSW; i += kThreads) {
       int row = i / kSW, w = i % kSW;
-      uint32_t x = load_ref_word<kPacked>(r, rw, b0 + row, B, s0 + 4 * w);
+      uint32_t x =
+          uvt::load_ref_word<kPacked>(r, rw, b0 + row, B, s0 + 4 * w);
       r_raw[w][row] = x;
       r_pure[w][row] = uvt::pure_only(x);
       r_nz[w][row] = uvt::nz_bytes(x);
@@ -171,9 +150,9 @@ score_counters_kernel(const uint8_t* __restrict__ r, long rw,
   if (do_cons) {
 #pragma unroll
     for (int i = 0; i < kRPT; ++i) {
-      int v0 = sum16(c_acgt[i]), v1 = sum16(c_text[i]),
-          v2 = sum16(c_part[i]), v3 = sum16(c_valid[i]),
-          v4 = sum16(c_sites[i]);
+      int v0 = uvt::sum16(c_acgt[i]), v1 = uvt::sum16(c_text[i]),
+          v2 = uvt::sum16(c_part[i]), v3 = uvt::sum16(c_valid[i]),
+          v4 = uvt::sum16(c_sites[i]);
       int b = b0 + ty + 16 * i;
       if (tx == 0 && b < B) {
         int32_t* o = cons5 + (long)b * 5;
@@ -203,10 +182,25 @@ extern "C" int uvt_score_counters(const void* r, long rw, int packed,
   int32_t* o_vv = static_cast<int32_t*>(vv);
   int32_t* o_c5 = static_cast<int32_t*>(cons5);
   if (packed)
-    score_counters_kernel<true><<<grid, kThreads, 0, s>>>(
+    score_counters_kernel<true, true><<<grid, kThreads, 0, s>>>(
         r8, rw, q8, c8, B, Q, W, o_aa, o_mm, o_vv, o_c5);
   else
-    score_counters_kernel<false><<<grid, kThreads, 0, s>>>(
+    score_counters_kernel<false, true><<<grid, kThreads, 0, s>>>(
         r8, rw, q8, c8, B, Q, W, o_aa, o_mm, o_vv, o_c5);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The pair counters alone (pallas_score.py:_kernel, no consensus):
+// r: (B, S) uint8 codes; q: (Q, S) uint8; S % 64 == 0.  Outputs aa/mm/vv
+// (B, Q) int32.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int uvt_pair_counters(const void* r, const void* q, int B, int Q,
+                                 int S, void* aa, void* mm, void* vv,
+                                 void* stream) {
+  dim3 grid((B + kBT - 1) / kBT, (Q + kQT - 1) / kQT);
+  score_counters_kernel<false, false>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(r), S, static_cast<const uint8_t*>(q),
+          nullptr, B, Q, S, static_cast<int32_t*>(aa),
+          static_cast<int32_t*>(mm), static_cast<int32_t*>(vv), nullptr);
   return static_cast<int>(cudaGetLastError());
 }

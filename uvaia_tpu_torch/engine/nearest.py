@@ -1,6 +1,6 @@
 """Streaming exact nearest-neighbour search (``uvaia nearest``) on
 PyTorch — the counterpart of ``uvaia_tpu/engine/nearest.py`` for one
-device, full mode, with the prune prefilter on or off.
+device, full mode or --acgt, with the prune prefilter on or off.
 
 Read queries -> QC -> site classes -> stream the database in batches
 (sparse-delta or 4-bit packed uploads) -> rebuild the codes on the
@@ -51,7 +51,7 @@ NOT_PORTED = "not yet ported in uvaia_tpu_torch (see ROADMAP.md)"
 class NearestConfig:
     nbest: int = 100
     trim: int = 0
-    acgt: bool = False               # --acgt: not ported yet (refused)
+    acgt: bool = False               # --acgt: ACGT differences only
     keep_resolved: bool = False
     exclude_self: bool = False
     query_ambiguity: float = 0.5
@@ -131,8 +131,6 @@ def resolve_device(name: str) -> torch.device:
 
 def check_ported(cfg: NearestConfig) -> None:
     """Refuse the options whose paths this package does not have yet."""
-    if cfg.acgt:
-        raise SystemExit(f"--acgt is {NOT_PORTED}")
     if cfg.n_devices and cfg.n_devices > 1:
         raise SystemExit(f"--devices {cfg.n_devices} is {NOT_PORTED}")
     if cfg.site_shards > 1:
@@ -161,8 +159,12 @@ def _run_nearest(ref_paths: list[str], query_path: str,
     log(f"Prepared {pack.n_query} query sequences in "
         f"{time.time()-t0:.2f}s; scanning with top-k={cfg.nbest}, "
         f"batch={cfg.pool}")
-    log("Considering text match and partially ambiguous "
-        "(excluding only gaps and Ns).")
+    if cfg.acgt:
+        log("Considering ACGT differences only "
+            "(excluding all other characters).")
+    else:
+        log("Considering text match and partially ambiguous "
+            "(excluding only gaps and Ns).")
 
     def up(x: np.ndarray) -> torch.Tensor:
         """Host array -> tensor on the run's device."""

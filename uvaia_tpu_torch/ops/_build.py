@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``
-(no PyTorch headers, so the build takes seconds, not minutes).  The
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes`` (no
+PyTorch headers, so the build takes seconds, not minutes).  The
 library lives in ``build/uvaia_tpu_torch/`` beside the package and is
 rebuilt when any source under ``csrc/`` is newer.  Nothing here runs at
 import time: the CPU-only test machines import every module.
@@ -37,6 +38,9 @@ _L = ctypes.c_long
 _SIGNATURES = {
     "uvt_score_counters": [_P, _L, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                            _P],
+    "uvt_pair_counters": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "uvt_acgt_counters": [_P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                          _P, _P, _P],
     "uvt_amb_corr": [_P, _P, _I, _I, _I, _P, _P, _P],
     "uvt_delta_rebuild": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "uvt_gotoh_forward": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
@@ -72,29 +76,42 @@ def _stale() -> bool:
                for p in list(_sources()) + list(CSRC.glob("*.cuh")))
 
 
+def _run_all(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands concurrently; their results in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    out = [p.communicate() for p in procs]
+    return [subprocess.CompletedProcess(c, p.returncode, *o)
+            for c, p, o in zip(cmds, procs, out)]
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into LIB_PATH if missing or stale; raises
     RuntimeError with nvcc's output when the build fails."""
     if not _stale():
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build to a temporary name, then rename: a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so")
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp,
-           *[str(p) for p in _sources()]]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
-    if verbose and (r.stdout or r.stderr):
-        print(r.stdout + r.stderr, flush=True)
-    os.replace(tmp, LIB_PATH)
+    nvcc = _nvcc()
+    # objects in a private directory, then link to a temporary name and
+    # rename: a concurrent process never loads a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in _sources()]
+        cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+                 "-fPIC", *(["-Xptxas=-v"] if verbose else []), "-c",
+                 "-o", obj, str(src)]
+                for src, obj in zip(_sources(), objs)]
+        lib_tmp = str(Path(tmp) / LIB_PATH.name)
+        for step in (cmds, [[nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp,
+                             *objs]]):
+            for r in _run_all(step):
+                if r.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
+                                       f"{' '.join(r.args)}\n"
+                                       f"{r.stdout}{r.stderr}")
+                if verbose and (r.stdout or r.stderr):
+                    print(r.stdout + r.stderr, flush=True)
+        os.replace(lib_tmp, LIB_PATH)
     return LIB_PATH
 
 

@@ -1,6 +1,7 @@
-"""Full-mode scan on PyTorch: device data, exact six-score scoring,
-the running per-query top-k, the lossless prune prefilter and the
-per-batch steps — the counterpart of ``uvaia_tpu/ops/scan.py``.
+"""The scan on PyTorch: device data, exact six-score scoring (full
+and --acgt mode), the running per-query top-k, the lossless prune
+prefilter and the per-batch steps — the counterpart of
+``uvaia_tpu/ops/scan.py``.
 
 Plain tensor functions on an explicit device.  The integer scoring
 passes go through the hand-written kernels (ops/score_kernels.py,
@@ -16,8 +17,15 @@ Scores (per reference r, query q; full mode):
   s3 valid pairs        = valid_c + vv
   s4 ACGT matches unique = aa
   s5 valid ref sites
+Scores in --acgt mode (ACGT differences only; nearest.c:443-477):
+  s0 ACGT matches           = (va_c - mm_c) + aa
+  s1 valid ACGT comparisons = va_c + pp
+  s2 ACGT matches unique    = aa
+  s3 valid ref sites
+  s4 dist_consensus         = mm_c + mismatches over idx_m
+  s5 dist_unique            = mismatches over the polymorphic idx
 Ranking is lexicographic over (s0..s5), ties to the lower database
-index (first seen).  ``--acgt`` mode is not ported yet.
+index (first seen).
 """
 
 from __future__ import annotations
@@ -31,12 +39,11 @@ from uvaia_tpu.core.encoding import IS_AMBIG, IS_PURE
 
 from .host import IDX_SENTINEL, INT32_MIN, KEY_SHIFT, _pad_to, majority_code
 from .recon import delta_rebuild
-from .score_kernels import (amb_corr, exact_counts, score_counters,
+from .score_kernels import (acgt_counters, acgt_counters_packed, amb_corr,
+                            exact_counts, score_counters,
                             score_counters_packed, unpack_codes)
 
 _SENT = int(IDX_SENTINEL)
-ACGT_NOT_PORTED = ("--acgt mode is not yet ported in uvaia_tpu_torch "
-                   "(see ROADMAP.md)")
 
 
 @dataclass
@@ -56,6 +63,8 @@ class QueryDeviceData:
     q_full: torch.Tensor          # (Q, W) uint8, 0 outside idx_mq
     amb_sites: torch.Tensor | None = None  # (A,) int32 ambiguity columns,
                                            # padded to 8 with 1 << 30
+    q_poly: torch.Tensor | None = None     # --acgt: (Q, W) uint8, 0
+                                           # outside the polymorphic idx
     # prune prefilter data (build_prune_data)
     u_base: torch.Tensor | None = None     # (W,) uint8 unanimous base
     q_pure_u: torch.Tensor | None = None   # (Q, W) int8 query-pure on U
@@ -88,10 +97,8 @@ def device_data_from_numpy(d: dict, device) -> QueryDeviceData:
     ``uvaia_tpu.ops.scan.QueryDeviceData``, plus its meta fields).
 
     ``w_part``/``w_text`` (the XLA correction tables; the correction
-    kernel works from the codes) and ``q_poly`` (--acgt) are not used
-    by the port and are ignored."""
-    if d["acgt"]:
-        raise NotImplementedError(ACGT_NOT_PORTED)
+    kernel works from the codes) are not used by the port and are
+    ignored."""
     kw = {m: d[m] for m in _META}
     for name in _ARRAYS:
         v = d.get(name)
@@ -100,10 +107,10 @@ def device_data_from_numpy(d: dict, device) -> QueryDeviceData:
 
 
 def build_device_data(pack, k: int, device="cpu") -> QueryDeviceData:
-    """Query tensors for a full-mode QueryPack (the numpy preparation
-    of uvaia_tpu.ops.scan.build_device_data, single site shard)."""
-    if pack.acgt:
-        raise NotImplementedError(ACGT_NOT_PORTED)
+    """Query tensors for a QueryPack (the numpy preparation of
+    uvaia_tpu.ops.scan.build_device_data, single site shard).  An --acgt
+    pack has no ambiguity columns (no corrections in that mode) and a
+    q_poly."""
     L = pack.n_sites
     W = -(-L // 1024) * 1024
     idx_mq = pack.idx_mq.astype(np.int32)
@@ -112,15 +119,21 @@ def build_device_data(pack, k: int, device="cpu") -> QueryDeviceData:
     idx_c = pack.idx_c.astype(np.int32)
     cons_full = np.zeros(W, dtype=np.uint8)
     cons_full[idx_c] = pack.consensus[idx_c]
-    amb_cols = np.nonzero(
-        (IS_AMBIG[pack.codes[:, idx_mq]] != 0).any(axis=0))[0]
-    amb_sites = None
-    if len(amb_cols):
-        amb_sites = _pad_to(idx_mq[amb_cols], 8, value=1 << 30)
+    amb_sites = q_poly = None
+    if pack.acgt:
+        ip = pack.idx.astype(np.int32)
+        q_poly = np.zeros((pack.n_query, W), dtype=np.uint8)
+        q_poly[:, ip] = pack.codes[:, ip]
+    else:
+        amb_cols = np.nonzero(
+            (IS_AMBIG[pack.codes[:, idx_mq]] != 0).any(axis=0))[0]
+        if len(amb_cols):
+            amb_sites = _pad_to(idx_mq[amb_cols], 8, value=1 << 30)
     return device_data_from_numpy(dict(
-        acgt=False, n_query=pack.n_query, n_sites=L, k=k,
+        acgt=pack.acgt, n_query=pack.n_query, n_sites=L, k=k,
         pack_keys=L < 2**15, cons_full=cons_full, q_full=q_full,
-        amb_sites=amb_sites, delta_base=majority_code(pack.codes)), device)
+        amb_sites=amb_sites, q_poly=q_poly,
+        delta_base=majority_code(pack.codes)), device)
 
 
 def build_prune_data(qd: QueryDeviceData, pack) -> None:
@@ -185,11 +198,17 @@ def _pure(c: torch.Tensor) -> torch.Tensor:
     return (c != 0) & ((c & (c - 1)) == 0)
 
 
-def site_partials(cons_full, q_full, ref_codes):
-    """Site-summable counters: (cons5 (B, 5), (aa, mm, vv) (B, Q)),
-    all int32.  ``ref_codes`` must already be q_full's width."""
-    aa, mm, vv, cons5 = score_counters(ref_codes, q_full, cons_full)
-    return cons5, (aa, mm, vv)
+def site_partials(acgt: bool, cons_full, q_full, ref_codes, q_poly=None):
+    """Site-summable counters, all int32: (cons5 (B, 5), mats), mats
+    (aa, mm, vv) (B, Q) in full mode and (pp, aa, ppp, aap) in --acgt
+    mode, whose cons5 is (mm_c, va_c, 0, 0, valid_sites).  ``ref_codes``
+    must already be q_full's width.  Every query count goes to the
+    kernel (the JAX package's Q > 64 crossover to XLA was the TPU's)."""
+    if acgt:
+        *mats, cons5 = acgt_counters(ref_codes, q_full, q_poly, cons_full)
+    else:
+        *mats, cons5 = score_counters(ref_codes, q_full, cons_full)
+    return cons5, tuple(mats)
 
 
 def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
@@ -199,6 +218,15 @@ def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
     ``ref_codes`` is read only at qd.amb_sites; ``ref_amb`` — the (B, A)
     amb-column reference codes already gathered (packed scoring) —
     replaces it when given."""
+    if qd.acgt:
+        # the s4/s5 split of nearest.c:443-477
+        mm_c, va_c, _, _, valid_sites = cons5.unbind(1)
+        s_pp, s_aa, s_ppp, s_aap = mats
+        mm_poly = s_ppp - s_aap                 # mismatches over idx alone
+        mm_m = (s_pp - s_aa) - mm_poly          # mismatches over idx_m
+        return ((va_c - mm_c)[:, None] + s_aa, va_c[:, None] + s_pp, s_aa,
+                valid_sites[:, None].expand_as(s_aa), mm_c[:, None] + mm_m,
+                mm_poly)
     acgt_c, text_c, part_c, valid_c, valid_sites = cons5.unbind(1)
     s_aa, s_mm, s_vv = mats
     corr_t = corr_p = 0
@@ -216,12 +244,18 @@ def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
     return (s0, s1, s2, s3, s4, s5)
 
 
+def _valid(qd: QueryDeviceData, planes) -> torch.Tensor:
+    """Per-ref valid-site counts: plane 5 in full mode, 3 in --acgt."""
+    return planes[3 if qd.acgt else 5][:, 0]
+
+
 def score_batch_planes(qd: QueryDeviceData, ref_codes: torch.Tensor):
     """Six (B, Q) int32 score planes + per-ref valid-site counts."""
     rc = _to_width(ref_codes, qd.width)
-    cons5, mats = site_partials(qd.cons_full, qd.q_full, rc)
+    cons5, mats = site_partials(qd.acgt, qd.cons_full, qd.q_full, rc,
+                                qd.q_poly)
     planes = assemble_score_planes(qd, rc, cons5, mats)
-    return planes, planes[5][:, 0]
+    return planes, _valid(qd, planes)
 
 
 def gather_packed_nibbles(packed: torch.Tensor,
@@ -236,14 +270,18 @@ def gather_packed_nibbles(packed: torch.Tensor,
 def score_batch_planes_packed(qd: QueryDeviceData, packed: torch.Tensor):
     """score_batch_planes straight from 4-bit packed rows: the full
     (B, W) code matrix is never built."""
-    aa, mm, vv, cons5 = score_counters_packed(packed.contiguous(),
-                                              qd.q_full, qd.cons_full)
+    packed = packed.contiguous()
     ref_amb = None
-    if qd.amb_sites is not None:
-        ref_amb = gather_packed_nibbles(packed, qd.amb_sites)
-    planes = assemble_score_planes(qd, None, cons5, (aa, mm, vv),
-                                   ref_amb=ref_amb)
-    return planes, planes[5][:, 0]
+    if qd.acgt:
+        *mats, cons5 = acgt_counters_packed(packed, qd.q_full, qd.q_poly,
+                                            qd.cons_full)
+    else:
+        *mats, cons5 = score_counters_packed(packed, qd.q_full,
+                                             qd.cons_full)
+        if qd.amb_sites is not None:
+            ref_amb = gather_packed_nibbles(packed, qd.amb_sites)
+    planes = assemble_score_planes(qd, None, cons5, mats, ref_amb=ref_amb)
+    return planes, _valid(qd, planes)
 
 
 def reconstruct_delta(base: torch.Tensor, pos: torch.Tensor,
@@ -409,7 +447,8 @@ def prune_step(qd: QueryDeviceData, state, ref_codes, ok):
 
       s0(r, q) = sum_U [q_i pure][r_i == b_i]   (exact, one product)
                + s0_P                           (<= min pure counts on P)
-      s1(r, q) <= s0_ub + min(amb_r, amb_q)     (text matches)
+      s1(r, q) <= s0_ub + min(amb_r, amb_q)     (full mode: text matches)
+      s1(r, q) <= min(pure_r, pure_q) totals    (--acgt: valid acgt pairs)
 
     A reference survives iff its packed key-1 upper bound reaches some
     query's current k-th threshold key."""
@@ -420,8 +459,13 @@ def prune_step(qd: QueryDeviceData, state, ref_codes, ok):
     pure_p_r = pure_r.index_select(1, qd.idx_p).sum(dim=1,
                                                     dtype=torch.int32)
     s0_ub = s0_u + torch.minimum(pure_p_r[:, None], qd.pure_p_q[None, :])
-    amb_r = ((rc != 0) & ~pure_r).sum(dim=1, dtype=torch.int32)
-    s1_ub = s0_ub + torch.minimum(amb_r[:, None], qd.amb_tot_q[None, :])
+    if qd.acgt:
+        pure_tot_r = pure_r.sum(dim=1, dtype=torch.int32)
+        pure_tot_q = qd.pure_p_q + qd.q_pure_u.sum(dim=1, dtype=torch.int32)
+        s1_ub = torch.minimum(pure_tot_r[:, None], pure_tot_q[None, :])
+    else:
+        amb_r = ((rc != 0) & ~pure_r).sum(dim=1, dtype=torch.int32)
+        s1_ub = s0_ub + torch.minimum(amb_r[:, None], qd.amb_tot_q[None, :])
     key1_ub = s0_ub * KEY_SHIFT + s1_ub if qd.pack_keys else s0_ub
     thr = _keys(qd, state[0][:, qd.k - 1, :])[..., 0]         # (Q,)
     return ok & (key1_ub >= thr[None, :]).any(dim=1)

@@ -1,10 +1,17 @@
-"""Full-mode scoring kernels and their plain PyTorch versions.
+"""Scoring kernels and their plain PyTorch versions.
 
 * :func:`score_counters` (csrc/score.cu, unpacked) replaces
   ``uvaia_tpu/ops/pallas_score.py:_kernel_full``;
 * :func:`score_counters_packed` (csrc/score.cu, packed) replaces
   ``pallas_score.py:_kernel_full_packed``;
-* :func:`amb_corr` (csrc/corr.cu) replaces ``pallas_score.py:_kernel_corr``.
+* :func:`amb_corr` (csrc/corr.cu) replaces ``pallas_score.py:_kernel_corr``;
+* :func:`acgt_counters` (csrc/acgt.cu, unpacked) replaces
+  ``pallas_score.py:_kernel_acgt_main`` + ``_kernel_acgt_poly`` (--acgt);
+* :func:`acgt_counters_packed` (csrc/acgt.cu, packed) replaces
+  ``pallas_score.py:_kernel_acgt_main_packed`` +
+  ``_kernel_acgt_poly_packed``;
+* :func:`pair_counters` (csrc/score.cu without the consensus epilogue)
+  replaces ``pallas_score.py:_kernel`` (``pair_counter_mats``).
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs the plain
@@ -53,24 +60,30 @@ def _popc4(c: torch.Tensor) -> torch.Tensor:
     return ((c >> 0) & 1) + ((c >> 1) & 1) + ((c >> 2) & 1) + ((c >> 3) & 1)
 
 
+def _acgt_matches(ri: torch.Tensor, qi: torch.Tensor) -> torch.Tensor:
+    """(B, Q) count of sites where both int32 codes are the same pure
+    base: one 0/1 plane product per base."""
+    return sum(exact_counts(ri == (1 << bit), qi == (1 << bit))
+               for bit in range(4))
+
+
+def pair_counters_plain(r: torch.Tensor, q: torch.Tensor):
+    """(aa, mm, vv) (B, Q) int32 from codes r (B, S), q (Q, S) — the
+    counters' definitions (see csrc/score.cu), one 0/1 plane product
+    per base bit."""
+    ri = r.to(torch.int32)
+    qi = q.to(torch.int32)
+    mm = sum(exact_counts((ri >> bit) & 1, (qi >> bit) & 1)
+             for bit in range(4))
+    return _acgt_matches(ri, qi), mm, exact_counts(ri != 0, qi != 0)
+
+
 def score_counters_plain(r: torch.Tensor, q: torch.Tensor,
                          cons: torch.Tensor):
     """(aa, mm, vv) (B, Q) int32 and cons5 (B, 5) int32 from unpacked
-    codes r (B, W), q (Q, W), cons (W,) — the counters' definitions,
-    one 0/1 plane product per base bit."""
+    codes r (B, W), q (Q, W), cons (W,) — the counters' definitions."""
+    aa, mm, vv = pair_counters_plain(r, q)
     ri = r.to(torch.int32)
-    qi = q.to(torch.int32)
-    aa = mm = None
-    for bit in range(4):
-        ra = ri == (1 << bit)            # pure base `bit`
-        qa = qi == (1 << bit)
-        rm = (ri >> bit) & 1
-        qm = (qi >> bit) & 1
-        d_aa, d_mm = exact_counts(ra, qa), exact_counts(rm, qm)
-        aa = d_aa if aa is None else aa + d_aa
-        mm = d_mm if mm is None else mm + d_mm
-    vv = exact_counts(ri != 0, qi != 0)
-
     c = cons.to(torch.int32)[None, :]
     v_r = ri != 0
     v_rc = v_r & (c != 0)
@@ -81,6 +94,27 @@ def score_counters_plain(r: torch.Tensor, q: torch.Tensor,
     return aa, mm, vv, cons5
 
 
+def acgt_counters_plain(r: torch.Tensor, q_full: torch.Tensor,
+                        q_poly: torch.Tensor, cons: torch.Tensor):
+    """(pp, aa, ppp, aap) (B, Q) int32 and cons5 (B, 5) int32 =
+    (mm_c, va_c, 0, 0, valid_sites) from unpacked codes r (B, W),
+    q_full and q_poly (Q, W), cons (W,) — the --acgt counters'
+    definitions (see csrc/acgt.cu)."""
+    ri = r.to(torch.int32)
+    pure_r = _pure(ri)
+    mats = []
+    for q in (q_full, q_poly):
+        qi = q.to(torch.int32)
+        mats += [exact_counts(pure_r, _pure(qi)), _acgt_matches(ri, qi)]
+    c = cons.to(torch.int32)[None, :]
+    both = pure_r & _pure(c)
+    zero = torch.zeros(r.shape[0], dtype=torch.int32, device=r.device)
+    cons5 = torch.stack([(both & (ri != c)).sum(dim=1, dtype=torch.int32),
+                         both.sum(dim=1, dtype=torch.int32), zero, zero,
+                         (ri != 0).sum(dim=1, dtype=torch.int32)], dim=1)
+    return (*mats, cons5)
+
+
 def unpack_codes(packed: torch.Tensor, n_sites: int) -> torch.Tensor:
     """(B, P) packed bytes -> (B, n_sites) uint8 codes (even site in
     the high nibble; inverse of ops/host.pack_codes)."""
@@ -88,15 +122,27 @@ def unpack_codes(packed: torch.Tensor, n_sites: int) -> torch.Tensor:
     return both.reshape(packed.shape[0], -1)[:, :n_sites]
 
 
+def _unpack_to(r_packed: torch.Tensor, W: int) -> torch.Tensor:
+    """Packed rows -> (B, W) codes; sites past 2 * P read code 0."""
+    codes = unpack_codes(r_packed, 2 * r_packed.shape[1])
+    if codes.shape[1] < W:
+        codes = torch.nn.functional.pad(codes, (0, W - codes.shape[1]))
+    return codes
+
+
 def score_counters_packed_plain(r_packed: torch.Tensor, q: torch.Tensor,
                                 cons: torch.Tensor):
     """score_counters_plain fed by packed bytes (sites past 2 * P read
     code 0)."""
-    W = q.shape[1]
-    codes = unpack_codes(r_packed, 2 * r_packed.shape[1])
-    if codes.shape[1] < W:
-        codes = torch.nn.functional.pad(codes, (0, W - codes.shape[1]))
-    return score_counters_plain(codes, q, cons)
+    return score_counters_plain(_unpack_to(r_packed, q.shape[1]), q, cons)
+
+
+def acgt_counters_packed_plain(r_packed: torch.Tensor, q_full: torch.Tensor,
+                               q_poly: torch.Tensor, cons: torch.Tensor):
+    """acgt_counters_plain fed by packed bytes (sites past 2 * P read
+    code 0)."""
+    return acgt_counters_plain(_unpack_to(r_packed, q_full.shape[1]),
+                               q_full, q_poly, cons)
 
 
 def amb_corr_plain(r: torch.Tensor, q: torch.Tensor, chunk: int = 1 << 24):
@@ -153,10 +199,15 @@ def _counters_launch(r, rw, packed, q, cons):
     return (*out, cons5)
 
 
-def _check_counters(r, q, cons, packed: bool) -> None:
+def _check_counters(r, q, cons, packed: bool, q_poly=None) -> None:
     _check_u8("r", r, 2, r.device)
     _check_u8("q", q, 2, r.device)
     _check_u8("cons", cons, 1, r.device)
+    if q_poly is not None:
+        _check_u8("q_poly", q_poly, 2, r.device)
+        if q_poly.shape != q.shape:
+            raise ValueError(f"q_poly has shape {tuple(q_poly.shape)}, q "
+                             f"{tuple(q.shape)}")
     W = q.shape[1]
     if cons.shape[0] != W:
         raise ValueError(f"cons has {cons.shape[0]} sites, q has {W}")
@@ -168,15 +219,20 @@ def _check_counters(r, q, cons, packed: bool) -> None:
         raise ValueError(f"r has {r.shape[1]} sites, q has {W}")
 
 
+def _check_kernel_shapes(q, *rows) -> None:
+    """The counter kernels read 64-site chunks of 4-byte words."""
+    if q.shape[1] % 64 or any(t.data_ptr() % 4 for t in (q, *rows)):
+        raise ValueError("the counter kernels need W % 64 == 0 and "
+                         "4-byte aligned rows")
+
+
 def score_counters(r: torch.Tensor, q: torch.Tensor, cons: torch.Tensor):
     """(aa, mm, vv, cons5) from unpacked codes r (B, W), q (Q, W),
     cons (W,) — see csrc/score.cu for the definitions."""
     _check_counters(r, q, cons, packed=False)
     if not _build.use_kernel(r):
         return score_counters_plain(r, q, cons)
-    if q.shape[1] % 64 or any(t.data_ptr() % 4 for t in (r, q, cons)):
-        raise ValueError("the counter kernel needs W % 64 == 0 and "
-                         "4-byte aligned rows")
+    _check_kernel_shapes(q, r, cons)
     out = _counters_launch(r, r.shape[1], False, q, cons)
     score_counters.launches += 1
     return out
@@ -193,9 +249,7 @@ def score_counters_packed(r_packed: torch.Tensor, q: torch.Tensor,
     _check_counters(r_packed, q, cons, packed=True)
     if not _build.use_kernel(r_packed):
         return score_counters_packed_plain(r_packed, q, cons)
-    if q.shape[1] % 64 or any(t.data_ptr() % 4 for t in (q, cons)):
-        raise ValueError("the counter kernel needs W % 64 == 0 and "
-                         "4-byte aligned query rows")
+    _check_kernel_shapes(q, cons)
     out = _counters_launch(r_packed, r_packed.shape[1], True, q, cons)
     score_counters_packed.launches += 1
     return out
@@ -231,3 +285,85 @@ def amb_corr(r: torch.Tensor, q: torch.Tensor):
 
 
 amb_corr.launches = 0
+
+
+def _acgt_launch(r, rw, packed, q_full, q_poly, cons):
+    B, Q, W = r.shape[0], q_full.shape[0], q_full.shape[1]
+    dev = r.device
+    out = [torch.empty((B, Q), dtype=torch.int32, device=dev)
+           for _ in range(4)]
+    cons5 = torch.empty((B, 5), dtype=torch.int32, device=dev)
+    if B == 0:
+        return (*out, cons5)
+    rc = _build.lib().uvt_acgt_counters(
+        r.data_ptr(), rw, int(packed), q_full.data_ptr(), q_poly.data_ptr(),
+        cons.data_ptr(), B, Q, W, *(o.data_ptr() for o in out),
+        cons5.data_ptr(), _build.stream_ptr(r))
+    _build.check(rc, "acgt_counters")
+    return (*out, cons5)
+
+
+def acgt_counters(r: torch.Tensor, q_full: torch.Tensor,
+                  q_poly: torch.Tensor, cons: torch.Tensor):
+    """--acgt counters (pp, aa, ppp, aap, cons5) from unpacked codes
+    r (B, W), q_full and q_poly (Q, W), cons (W,) — see csrc/acgt.cu for
+    the definitions."""
+    _check_counters(r, q_full, cons, packed=False, q_poly=q_poly)
+    if not _build.use_kernel(r):
+        return acgt_counters_plain(r, q_full, q_poly, cons)
+    _check_kernel_shapes(q_full, r, q_poly, cons)
+    out = _acgt_launch(r, r.shape[1], False, q_full, q_poly, cons)
+    acgt_counters.launches += 1
+    return out
+
+
+acgt_counters.launches = 0
+
+
+def acgt_counters_packed(r_packed: torch.Tensor, q_full: torch.Tensor,
+                         q_poly: torch.Tensor, cons: torch.Tensor):
+    """acgt_counters fed by 4-bit packed rows (B, P), in the layout of
+    score_counters_packed."""
+    _check_counters(r_packed, q_full, cons, packed=True, q_poly=q_poly)
+    if not _build.use_kernel(r_packed):
+        return acgt_counters_packed_plain(r_packed, q_full, q_poly, cons)
+    _check_kernel_shapes(q_full, q_poly, cons)
+    out = _acgt_launch(r_packed, r_packed.shape[1], True, q_full, q_poly,
+                       cons)
+    acgt_counters_packed.launches += 1
+    return out
+
+
+acgt_counters_packed.launches = 0
+
+
+def pair_counters(r: torch.Tensor, q: torch.Tensor):
+    """(aa, mm, vv) (B, Q) int32 from codes r (B, S), q (Q, S), any S —
+    the full-mode pair counters without the consensus ones.  On the card
+    both are zero-padded to a multiple of 64 sites (a code-0 site counts
+    nothing), as mats_via_pallas pads to its site tile."""
+    _check_u8("r", r, 2, r.device)
+    _check_u8("q", q, 2, r.device)
+    if r.shape[1] != q.shape[1]:
+        raise ValueError(f"r has {r.shape[1]} sites, q has {q.shape[1]}")
+    if not _build.use_kernel(r):
+        return pair_counters_plain(r, q)
+    pad = -r.shape[1] % 64
+    if pad:
+        r = torch.nn.functional.pad(r, (0, pad))
+        q = torch.nn.functional.pad(q, (0, pad))
+    _check_kernel_shapes(q, r)
+    B, Q, S = r.shape[0], q.shape[0], q.shape[1]
+    out = [torch.empty((B, Q), dtype=torch.int32, device=r.device)
+           for _ in range(3)]
+    if B == 0:
+        return tuple(out)
+    rc = _build.lib().uvt_pair_counters(
+        r.data_ptr(), q.data_ptr(), B, Q, S, *(o.data_ptr() for o in out),
+        _build.stream_ptr(r))
+    _build.check(rc, "pair_counters")
+    pair_counters.launches += 1
+    return tuple(out)
+
+
+pair_counters.launches = 0
