@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, without the final result line):
-  0. environment: card name and power limit, torch / CUDA versions,
-     whether the native IO library loaded; fails without CUDA;
+  0. environment: card name and power limit, torch / CUDA versions, the
+     codecs of the port's native IO library (built with g++); fails
+     without CUDA or without that library;
   1. build the CUDA kernels from uvaia_tpu_torch/csrc with nvcc (one
      process a source, all started together);
   2. each kernel against its plain PyTorch version on the card, exact
      equality, at the shapes of the main path (B=4096 references of
-     L=29903 sites; the full-mode and --acgt counters at Q = 7, 64, 129
-     and 1000, the pair counters at Q=64), with CUDA-event times of both;
+     L=29903 sites; the full-mode, --acgt and pair counters at Q = 7, 64,
+     129 and 1000), with CUDA-event times of both, of the library
+     yardstick where one exists (the counters and corrections as one-hot
+     int8 products through torch._int_mm, checked equal to the kernel's
+     counters first) and each kernel's roofline bound from its shapes;
   3. `nearest` end to end on the card against an independent numpy
      oracle (L=29903, Q=8, 2048 references, k=10), in full mode and
      with --acgt;
@@ -40,7 +44,10 @@ kernels from phase 4 (full-mode ones from its full-mode pair, the
 runs.  No command runs `pair_counters` (nor, in the JAX package, the
 kernel it replaces): its count is its phase-2 launches.
 The line before the last is the card's `name, power.limit`; the line
-before it the kernels' JSON record; the last line is the result.
+before it the kernels' JSON record (times at Q=64 and the first Gotoh
+band level; `bound_ms` the larger of the bytes over 3.35 TB/s and the
+operations over their peak rate, `library_ms` null where no single
+PyTorch call computes the function); the last line is the result.
 Data comes from fixed seeds; files go to build/chip_smoke/ and are
 removed at the end.
 """
@@ -64,6 +71,7 @@ from uvaia_tpu_torch.cli import main as cli_main
 from uvaia_tpu_torch.engine import align
 from uvaia_tpu_torch.engine.nearest import NearestConfig, run_nearest
 from uvaia_tpu_torch.engine.query import build_query_pack
+from uvaia_tpu_torch.io import native
 from uvaia_tpu_torch.ops import _build, gotoh, gotoh_kernels, host, recon
 from uvaia_tpu_torch.ops import scan, score_kernels
 
@@ -124,6 +132,116 @@ NEAREST_KERNELS = ("score_counters", "score_counters_packed", "amb_corr",
                    "delta_rebuild")
 ACGT_KERNELS = ("acgt_counters", "acgt_counters_packed")
 N_REF = 29903          # the SARS-CoV-2 reference length
+
+# Roofline rates of one H100 SXM: dense int8 tensor cores and HBM3 from
+# NVIDIA's data sheet; the CUDA-core int32 rate as 132 SMs x 64 int32
+# lanes x the 1.98 GHz boost clock.
+INT8_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+BYTES_PER_S = 3.35e12
+# integer operations per banded Gotoh cell: three adds, four mins and the
+# substitution select, plus two for the traceback bits (forward only)
+GOTOH_CELL_OPS = {"gotoh_forward": 10, "gotoh_score": 8}
+
+
+def bound(nbytes: int, int8_ops: float = 0.0, int32_ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over their peak rate."""
+    t_bytes = nbytes / BYTES_PER_S * 1e3
+    t_ops = max(int8_ops / INT8_OPS_PER_S, int32_ops / INT32_OPS_PER_S) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def counter_bound(r, q_ops, planes: int, n_out: int, cons: bool) -> dict:
+    """Bound of a counter kernel: 2 * B * Q * planes * W int8 operations
+    (its feature-plane products); each input read once, each output
+    written once."""
+    B, (Q, W) = r.shape[0], q_ops[0].shape
+    nbytes = (r.numel() + sum(x.numel() for x in q_ops) + n_out * B * Q * 4
+              + (W + 5 * B * 4 if cons else 0))
+    return bound(nbytes, int8_ops=2.0 * B * Q * planes * W)
+
+
+# ----------------------------------------------------------------------
+# the library yardstick: one-hot feature planes through torch._int_mm
+# (int8 x int8 -> int32 on the tensor cores).  Operands are built before
+# the timed window; the port itself never calls _int_mm.
+
+AMB_CODES = [c for c in range(16) if bin(c).count("1") >= 2]
+
+
+def _i8(planes) -> torch.Tensor:
+    return torch.cat([p.to(torch.int8) for p in planes], dim=1)
+
+
+def _pad8(x: torch.Tensor) -> torch.Tensor:
+    """Rows padded with code 0 to a multiple of 8 (_int_mm's N)."""
+    return torch.nn.functional.pad(x, (0, 0, 0, -x.shape[0] % 8))
+
+
+def _onehot(c):
+    return [c == (1 << k) for k in range(4)]
+
+
+def _bits(c):
+    return [(c >> k) & 1 for k in range(4)]
+
+
+def _pure(c):
+    return (c != 0) & ((c & (c - 1)) == 0)
+
+
+def library_products(pairs):
+    """A callable computing each (refs (B, K), queries (N, K)) int8 pair
+    with torch._int_mm."""
+    def run():
+        return [torch._int_mm(a, b.t()) for a, b in pairs]
+    return run
+
+
+def library_full(r, q):
+    """aa, mm, vv as three _int_mm products (pure one-hot 4W deep, mask
+    bits 4W deep, non-zero W deep)."""
+    qp = _pad8(q)
+    return library_products([(_i8(_onehot(r)), _i8(_onehot(qp))),
+                             (_i8(_bits(r)), _i8(_bits(qp))),
+                             (_i8([r != 0]), _i8([qp != 0]))])
+
+
+def library_acgt(r, q_full, q_poly):
+    """pp, ppp and aa, aap as two _int_mm products over the pure plane
+    and the four pure one-hot planes, q_full and q_poly side by side."""
+    qq = torch.cat([_pad8(q_full), _pad8(q_poly)])
+    return library_products([(_i8([_pure(r)]), _i8([_pure(qq)])),
+                             (_i8(_onehot(r)), _i8(_onehot(qq)))])
+
+
+def library_corr(ra, qa):
+    """corr_t and corr_p as two _int_mm products over the ambiguity
+    one-hot planes of the references (11 codes x A columns): against the
+    queries' one-hot planes, and against their weights [(a & q) != 0] -
+    popcount(a & q) on ambiguous q."""
+    qp = _pad8(qa).to(torch.int32)
+    q_amb = (qp & (qp - 1)) != 0
+    weights = []
+    for a in AMB_CODES:
+        inter = qp & a
+        pc = sum((inter >> k) & 1 for k in range(4))
+        weights.append(torch.where(q_amb, (inter != 0).to(torch.int32) - pc,
+                                   0))
+    ref = _i8([ra == a for a in AMB_CODES])
+    return library_products([(ref, _i8([qp == a for a in AMB_CODES])),
+                             (ref, _i8(weights))])
+
+
+def library_equal(got, want) -> None:
+    """The yardstick's products, cut to the real queries, against the
+    kernel's counters: the library call computes the same function."""
+    for g, w in zip(got, want, strict=True):
+        if not torch.equal(g, w):
+            raise AssertionError("the _int_mm yardstick does not compute "
+                                 "the kernel's counters")
 
 
 def log(msg: str) -> None:
@@ -208,26 +326,42 @@ def max_err(a, b) -> float:
 # phases
 
 
-def check_kernel(name: str, fn, plain, args, shape: str) -> dict:
+def check_kernel(name: str, fn, plain, args, shape: str, bnd: dict,
+                 library=None) -> dict:
     """fn(*args) against plain(*args) on the same tensors, exactly, with
-    CUDA-event times of both; logs one line, returns the record fields."""
-    err = max_err(fn(*args), plain(*args))
+    CUDA-event times of both and of the library yardstick (library =
+    (run, check): check(kernel outputs, run()) raises unless the library
+    call computes the same counters); logs one line, returns the record
+    fields."""
+    out = fn(*args)
+    err = max_err(out, plain(*args))
+    library_ms = None
+    if library is not None:
+        run_lib, check = library
+        check(out, run_lib())
+        library_ms = timed_ms(run_lib)
+    del out
     ms = timed_ms(lambda: fn(*args))
     plain_ms = timed_ms(lambda: plain(*args), reps=3)
+    lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
     log(f"  {name} {shape}: max_abs_err={err} kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"plain {plain_ms:.3f} ms, library {lib_txt}, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **bnd)
 
 
 def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
     """Each nearest kernel vs its plain version on the same tensors: the
-    full-mode and --acgt counters (unpacked and packed) at every Q, the
-    corrections, the rebuild and the pair counters at Q=64."""
+    full-mode and --acgt counters (unpacked and packed) and the pair
+    counters at every Q, the corrections and the rebuild at Q=64; the
+    counters and corrections also against their _int_mm yardstick."""
     sk = score_kernels
     queries = query_set(rng, L, max(qs_list))
     refs = make_genomes(rng, B, L, queries, snps=20, amb=3, n_runs=2)
     codes = LUT[refs]
     packed_d = torch.from_numpy(host.pack_codes(codes)).to(dev)
+    sk.pair_counters.launches = 0
     for Q in qs_list:
         qpath = WORK / f"k_q{Q}.fa"
         write_fasta(qpath, "q", queries[:Q])
@@ -235,46 +369,73 @@ def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
             pack = build_query_pack(str(qpath), acgt=acgt)
             qd = scan.build_device_data(pack, k=10, device=dev)
             r = scan._to_width(torch.from_numpy(codes).to(dev), qd.width)
+            nq = pack.n_query
             if acgt:
                 names = ACGT_KERNELS
                 plains = (sk.acgt_counters_plain,
                           sk.acgt_counters_packed_plain)
                 q_args = (qd.q_full, qd.q_poly, qd.cons_full)
+                planes, n_out = 10, 4
+                qp8 = -nq % 8 + nq
+                lib = (library_acgt(r, qd.q_full, qd.q_poly),
+                       lambda o, g: library_equal(
+                           [g[0][:, :nq], g[0][:, qp8:qp8 + nq],
+                            g[1][:, :nq], g[1][:, qp8:qp8 + nq]],
+                           [o[0], o[2], o[1], o[3]]))
             else:
                 names = ("score_counters", "score_counters_packed")
                 plains = (sk.score_counters_plain,
                           sk.score_counters_packed_plain)
                 q_args = (qd.q_full, qd.cons_full)
+                planes, n_out = 9, 3
+                lib = (library_full(r, qd.q_full),
+                       lambda o, g: library_equal(
+                           [x[:, :nq] for x in g], o[:3]))
                 full = (qd, r)
-            recs = [check_kernel(name, KERNELS[name]["wrapper"], plain,
-                                 (rows, *q_args), f"B={B} {dim} "
-                                 f"Q={pack.n_query}")
+            recs = [check_kernel(
+                        name, KERNELS[name]["wrapper"], plain,
+                        (rows, *q_args), f"B={B} {dim} Q={nq}",
+                        counter_bound(rows, q_args[:-1], planes, n_out,
+                                      True), lib)
                     for name, plain, rows, dim in zip(
                         names, plains, (r, packed_d),
                         (f"W={qd.width}", f"P={packed_d.shape[1]}"))]
+            del lib
             if Q == 64:
                 for name, rec in zip(names, recs):
                     records[name].update(rec)
+        # the pair counters at the natural site count (the wrapper pads
+        # to 64 sites)
+        qd, r = full
+        rows = torch.from_numpy(codes).to(dev)
+        qs = qd.q_full[:, :L].contiguous()
+        nq = qd.n_query
+        rec = check_kernel(
+            "pair_counters", sk.pair_counters, sk.pair_counters_plain,
+            (rows, qs), f"B={B} S={L} Q={nq}",
+            counter_bound(rows, (qs,), 9, 3, False),
+            (library_full(r, qd.q_full),
+             lambda o, g: library_equal([x[:, :nq] for x in g], o)))
+        if Q == 64:
+            records["pair_counters"].update(rec)
         if Q != 64:
             continue
-        qd, r = full
         if qd.amb_sites is None:
             raise AssertionError("the Q=64 pack has no ambiguity column")
         ra = scan._take_fill(r, qd.amb_sites)
         qa = scan._take_fill(qd.q_full, qd.amb_sites)
+        A = ra.shape[1]
         records["amb_corr"].update(check_kernel(
             "amb_corr", sk.amb_corr, sk.amb_corr_plain, (ra, qa),
-            f"B={B} A={ra.shape[1]} Q={qd.n_query}"))
+            f"B={B} A={A} Q={nq}",
+            bound(ra.numel() + qa.numel() + 2 * B * nq * 4,
+                  int8_ops=2.0 * B * nq * 2 * len(AMB_CODES) * A),
+            (library_corr(ra, qa),
+             lambda o, g: library_equal([x[:, :nq] for x in g], o))))
         phase_rebuild(dev, codes, qd, records)
-        # the pair counters at the natural site count (the wrapper pads
-        # to 64 sites)
-        sk.pair_counters.launches = 0
-        rows = torch.from_numpy(codes).to(dev)
-        qs = qd.q_full[:, :L].contiguous()
-        records["pair_counters"].update(check_kernel(
-            "pair_counters", sk.pair_counters, sk.pair_counters_plain,
-            (rows, qs), f"B={B} S={L} Q={qd.n_query}"),
-            launches=sk.pair_counters.launches)
+    # no command runs the pair counters: their count is their launches
+    # in this phase
+    records["pair_counters"]["launches"] = sk.pair_counters.launches
 
 
 def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
@@ -297,7 +458,9 @@ def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
         raise AssertionError("delta_rebuild did not give back the rows")
     records["delta_rebuild"].update(check_kernel(
         "delta_rebuild", recon.delta_rebuild, recon.delta_rebuild_plain,
-        args, f"B={B} E={pos.shape[1]} w={qd.width}"))
+        args, f"B={B} E={pos.shape[1]} w={qd.width}",
+        bound(pos.numel() * pos.element_size() + val.numel() + qd.width
+              + B * qd.width)))
 
 
 PURE = np.isin(np.arange(16), (1, 2, 4, 8))
@@ -586,11 +749,17 @@ def phase_gotoh(dev, rng, records: dict) -> None:
             err = max_err(fn(*args), want)
             del want
             ms = timed_ms(lambda: fn(*args), reps=3)
+            cells = B * N_REF * W
+            bnd = bound(ref_d.numel() + q_d.numel() + 4 * B + 12 * B
+                        + (cells if name == "gotoh_forward" else 0),
+                        int32_ops=GOTOH_CELL_OPS[name] * cells)
             log(f"  {name} B={B} n={N_REF} lo={lo} W={W}: max_abs_err={err}"
-                f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+                f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+                f"none, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
             if W == 129:
-                records[name].update(max_abs_err=err, ms=ms,
-                                     plain_ms=plain_ms)
+                records[name].update(max_abs_err=err, ms=ms, kernel_ms=ms,
+                                     plain_ms=plain_ms, library_ms=None,
+                                     **bnd)
         del q_d
         torch.cuda.empty_cache()
 
@@ -826,7 +995,8 @@ def run(dev: torch.device, card: str) -> dict:
             work["proc"].wait()
         shutil.rmtree(WORK, ignore_errors=True)
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     return {"kernels": [{k: r[k] for k in keys} for r in records.values()]}
 
 
@@ -848,7 +1018,12 @@ def main() -> int:
         log("  torch.cuda.is_available() is False: this smoke test needs "
             "a CUDA GPU")
         return 1
-    log(f"  native IO library loaded: {host._delta_lib() is not None}")
+    lib = native.get_lib()
+    if lib is None:
+        log("  the port's native IO library did not build or load")
+        return 1
+    log(f"  native IO library loaded: {native.LIB_PATH.name}, codecs: raw "
+        f"+ {native.codecs(lib)} (bz2 and the others through Python)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

@@ -12,6 +12,7 @@ import pytest
 import uvaia_tpu.engine.align as jalign
 import uvaia_tpu.engine.nearest as jnearest
 import uvaia_tpu.io.fasta as fasta_mod
+import uvaia_tpu_torch.io.fasta as port_fasta_mod
 from uvaia_tpu.cli.main import main as jax_main
 from uvaia_tpu_torch.cli import main as port_main
 from uvaia_tpu_torch.engine import align as palign, nearest as pnearest
@@ -42,7 +43,8 @@ def test_unwritable_output_prefix_exits_2(tmp_path, monkeypatch, capsys,
                                           cmd):
     """An output prefix in a read-only directory.  A root process may
     write there all the same, so the writer's file opener also refuses
-    paths under it, as the file system would."""
+    paths under it, as the file system would (in each package's own
+    writer module)."""
     monkeypatch.chdir(tmp_path)
     _files()
     locked = tmp_path / "locked"
@@ -54,7 +56,8 @@ def test_unwritable_output_prefix_exits_2(tmp_path, monkeypatch, capsys,
                                   str(path))
         return open(path, *a, **kw)
 
-    monkeypatch.setattr(fasta_mod, "open", refusing_open, raising=False)
+    for mod in (fasta_mod, port_fasta_mod):
+        monkeypatch.setattr(mod, "open", refusing_open, raising=False)
     prefix = str(locked / "out")
     assert jax_main(ARGV[cmd] + ["-o", prefix]) == 2
     jax_err = capsys.readouterr().err

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from uvaia_tpu.core.encoding import encode
+from uvaia_tpu_torch.core.encoding import encode
 from uvaia_tpu_torch.engine import align, nearest
 from uvaia_tpu_torch.engine.query import QueryPack
 from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
@@ -101,6 +101,99 @@ def test_gpu_acgt_and_pair_counters_match_plain(cuda_device, B, Q):
     qs = qd.q_full[:, :L].contiguous()
     _equal(sk.pair_counters(rs, qs), sk.pair_counters_plain(rs, qs))
     assert [w.launches for w in wrappers] == [n + 1 for n in before]
+
+
+def _operands(rng, dev, B, Q, L):
+    """Unpacked (B, W) and packed (B, P) reference codes, q_full, q_poly
+    (q_full on about half the sites) and a consensus on `dev`, W = L
+    rounded up to 64 sites (code 0 beyond L)."""
+    W = -(-L // 64) * 64
+    pad = lambda x: np.pad(x, ((0, 0), (0, W - L)))
+    codes = _codes(rng, B, L)
+    q = _codes(rng, Q, L, 0.05)
+    p = np.where(rng.random((Q, L)) < 0.5, q, 0).astype(np.uint8)
+    cons = np.where(rng.random(L) < 0.7, q[0], 0).astype(np.uint8)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (t(pad(codes)), t(host.pack_codes(codes)), t(pad(q)), t(pad(p)),
+            t(pad(cons[None, :])[0]))
+
+
+COUNTERS = (
+    (sk.score_counters, sk.score_counters_plain, False, False),
+    (sk.score_counters_packed, sk.score_counters_packed_plain, True, False),
+    (sk.acgt_counters, sk.acgt_counters_plain, False, True),
+    (sk.acgt_counters_packed, sk.acgt_counters_packed_plain, True, True))
+
+
+def _counter_args(ops, packed, acgt):
+    r, pk, q, p, cons = ops
+    return ((pk if packed else r), q, *((p,) if acgt else ()), cons)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [1, 7, 64, 129, 1000])
+@pytest.mark.parametrize("B", [33, 300, 4096])
+def test_gpu_tensor_core_counters_match_plain(cuda_device, B, Q):
+    """Every counter kernel (full mode and --acgt, unpacked and packed),
+    with its consensus outputs, equals its plain version at ragged B and
+    Q: partial reference and query tiles, and site splits (few tiles)."""
+    rng = np.random.default_rng(B * 7 + Q)
+    ops = _operands(rng, cuda_device, B, Q, 2501)
+    for fn, plain, packed, acgt in COUNTERS:
+        args = _counter_args(ops, packed, acgt)
+        before = fn.launches
+        _equal(fn(*args), plain(*args))
+        assert fn.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q", [7, 64])
+def test_gpu_counters_full_width(cuda_device, Q):
+    """At the main path's width (L=29903, W=30720, B=4096) and at odd
+    packed rows whose 2P exceeds the real site count."""
+    rng = np.random.default_rng(90 + Q)
+    ops = _operands(rng, cuda_device, 4096, Q, 29903)
+    for fn, plain, packed, acgt in COUNTERS:
+        args = _counter_args(ops, packed, acgt)
+        _equal(fn(*args), plain(*args))
+
+
+@pytest.mark.gpu
+def test_gpu_pair_counters_unpadded_sites(cuda_device):
+    """pair_counters at S=29903 (the wrapper pads to 64 sites)."""
+    rng = np.random.default_rng(31)
+    rs = torch.from_numpy(_codes(rng, 300, 29903)).to(cuda_device)
+    qs = torch.from_numpy(_codes(rng, 64, 29903, 0.05)).to(cuda_device)
+    _equal(sk.pair_counters(rs, qs), sk.pair_counters_plain(rs, qs))
+
+
+@pytest.mark.gpu
+def test_gpu_consensus_outputs_independent_of_queries(cuda_device):
+    """cons5 depends on the references and the consensus alone: the same
+    for 1 query and for 200 (another grid, another site split), and equal
+    to the plain version's."""
+    rng = np.random.default_rng(41)
+    ops = _operands(rng, cuda_device, 300, 200, 6000)
+    r, pk, q, p, cons = ops
+    for fn, plain, packed, acgt in COUNTERS:
+        args = _counter_args(ops, packed, acgt)
+        one = _counter_args((r, pk, q[:1].contiguous(), p[:1].contiguous(),
+                             cons), packed, acgt)
+        want = plain(*args)[-1]
+        assert torch.equal(fn(*args)[-1], want)
+        assert torch.equal(fn(*one)[-1], want)
+
+
+@pytest.mark.gpu
+def test_gpu_counters_bit_identical_across_runs(cuda_device):
+    """A site-split launch (few tiles, W=30720: the splits add with int32
+    atomics) gives bit-identical results when run twice."""
+    rng = np.random.default_rng(43)
+    ops = _operands(rng, cuda_device, 300, 7, 29903)
+    for fn, _, packed, acgt in COUNTERS:
+        args = _counter_args(ops, packed, acgt)
+        first = [x.clone() for x in fn(*args)]
+        _equal(fn(*args), first)
 
 
 @pytest.mark.gpu

@@ -1,14 +1,18 @@
-"""The port's path needs no jax: in a process where importing jax or
-jaxlib raises, the package imports, `python -m uvaia_tpu_torch nearest
---device cpu --keep_resolved` (in full mode and with --acgt) and
-`python -m uvaia_tpu_torch align --device cpu` run to exit 0, and
-chip_smoke imports."""
+"""The port's path needs no jax and nothing of the JAX package: in a
+process where importing jax, jaxlib or any `uvaia_tpu` module raises,
+the package imports, `python -m uvaia_tpu_torch nearest --device cpu
+--keep_resolved` (in full mode and with --acgt) and `python -m
+uvaia_tpu_torch align --device cpu` run to exit 0, and chip_smoke
+imports; and no source file of the port (nor chip_smoke.py) holds an
+import statement of `uvaia_tpu`."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 from test_nearest import random_seqs, write_fasta
 
@@ -20,9 +24,12 @@ import runpy
 import sys
 
 
+BLOCKED = ("jax", "jaxlib", "uvaia_tpu")
+
+
 class NoJax(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"{name} is blocked in this process")
         return None
 
@@ -47,7 +54,7 @@ for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
             raise
 import chip_smoke  # noqa: F401,E402
 
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("NOJAX-OK")
 """
@@ -79,3 +86,39 @@ def test_port_runs_without_jax(tmp_path):
     assert "Considering ACGT differences only" in r.stderr
     assert "Total: 3 read, 3 aligned" in r.stderr
     assert (tmp_path / "nojax.aln.xz").exists()
+
+
+PORT_SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
+                      [*(ROOT / "uvaia_tpu_torch").rglob("*.py"),
+                       ROOT / "chip_smoke.py"])
+
+
+def _jax_package_imports(tree: ast.AST) -> list[str]:
+    """The `uvaia_tpu` modules named by the import statements of a
+    module (relative imports stay inside their own package)."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [n for n in names if n.split(".")[0] == "uvaia_tpu"]
+    return found
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
+def test_port_source_imports_nothing_of_jax_package(rel):
+    tree = ast.parse((ROOT / rel).read_text(), filename=rel)
+    assert _jax_package_imports(tree) == []
+
+
+def test_import_scan_sees_jax_package_imports():
+    """The scan above catches both forms, at any depth."""
+    tree = ast.parse("import uvaia_tpu.io.fasta\n"
+                     "def f():\n    from uvaia_tpu.core import encoding\n"
+                     "from uvaia_tpu_torch.io import fasta\n"
+                     "from . import uvaia_tpu\n")
+    assert _jax_package_imports(tree) == ["uvaia_tpu.io.fasta",
+                                          "uvaia_tpu.core"]

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import uvaia_tpu.io.native as native
+import uvaia_tpu_torch.io.native as port_native
 from uvaia_tpu.core.encoding import encode
 from uvaia_tpu.engine.query import QueryPack
 from uvaia_tpu.ops import scan as jscan
@@ -338,14 +339,15 @@ def _encoders_equal(rng):
 
 
 def test_host_encoders_match_jax_native():
-    if native.get_lib() is None:
+    if native.get_lib() is None or port_native.get_lib() is None:
         pytest.skip("native IO unavailable")
     _encoders_equal(np.random.default_rng(51))
 
 
 def test_host_encoders_match_jax_python(monkeypatch):
     monkeypatch.setenv("UVAIA_TPU_NO_NATIVE", "1")
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_failed", False)
+    for mod in (native, port_native):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_failed", False)
     assert host._delta_lib() is None
     _encoders_equal(np.random.default_rng(51))

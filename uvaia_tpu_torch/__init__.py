@@ -3,9 +3,10 @@ kernels for an NVIDIA H100 (sm_90a).
 
 A port of the JAX package ``uvaia_tpu`` that sits beside it: the JAX
 package is the reference each part is held against, byte for byte.
-This package imports torch and never jax; from ``uvaia_tpu`` it imports
-only jax-free host modules (encoding, IO, stores, checkpoints, query
-QC, the argparse builders).
+This package imports torch and never jax, and nothing of ``uvaia_tpu``:
+it keeps its own copies of the host modules it needs (encoding, IO and
+the native reader and encoder, store reading, checkpoints, query QC,
+the argument parsers), under the JAX package's module names.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Command line of the PyTorch port: ``python -m uvaia_tpu_torch
 nearest|align``.
 
-The flags are uvaia_tpu's own (the subcommand parsers of
-``uvaia_tpu.cli.main``), plus ``--device {cuda,cpu}``; ``nearest`` runs
+The flags are uvaia_tpu's own (the port's copies of the subcommand
+parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}``; ``nearest`` runs
 in full mode and with ``--acgt``.  Options whose paths are not ported
 yet (``--devices > 1``, ``--site-shards > 1``, ``--num-hosts > 1``)
 exit with an error instead of running elsewhere.
@@ -17,9 +17,146 @@ import argparse
 import os
 import sys
 
-from uvaia_tpu.cli.main import _add_align, _add_nearest
-
 from . import __version__
+
+_SCORE_EPILOG = """\
+scoring / ranking semantics (reference: nearest.c:130-152, README.md:254-330):
+
+Neighbours are ranked by MATCH counts (similarity), not distances, with
+each later column breaking ties in the previous one:
+  1. ACGT_matches            matches counting only unambiguous A/C/G/T
+  2. text_matches            exact character matches (M-M counts, M-A
+                             does not)
+  3. partial_matches         IUPAC-aware: M-A counts because M={A,C};
+                             the fully ambiguous N never counts
+  4. valid_pair_comparisons  the effective compared length: sites where
+                             NEITHER sequence has a gap or N
+  5. ACGT_matches_unique     matches at sites where the query differs
+                             from the query-set consensus (prefers
+                             neighbours far from the queries' common
+                             ancestor on ties)
+  6. valid_ref_sites         non-gap/non-N sites in the reference
+                             (prefers better-resolved references last)
+
+Columns 1, 3 and 4 are the most useful; `valid_pair_comparisons -
+partial_matches` approximates an snp-dists-style SNP distance (sites
+with a gap/N in either sequence are ignored; partially ambiguous codes
+still count, so K vs A is a real mismatch here that snp-dists drops).
+Matches are tracked instead of mismatches because poorly-resolved
+sequences trivially have few mismatches: as a scan progresses the
+"highest ACGT mismatches in neighbourhood" can legitimately RISE while
+better-resolved (more informative) neighbours replace low-quality ones.
+
+Poorly-resolved queries (many Ns/indels) have more equally-near
+neighbours since only non-N sites are compared.  --keep_resolved drops
+a query when another query is a strictly more resolved version of it
+(no conflicting SNPs, e.g. AA--CG-C is redundant given AAAGCG-C, but
+AAA-CGAC and AAA-CGTC each carry information of their own and are
+kept).
+
+--acgt emulates ACGT-only tools (still match-counting): the table then
+carries dist_consensus and dist_unique columns whose sum is the usual
+SNP distance.
+
+Absolute match counts depend on how the query set is compressed and
+indexed and may differ between implementations or runs; the ranks (and
+distances) are what is preserved.
+
+The output alignment <prefix>.aln.xz accumulates every reference that
+was EVER in some query's current best set (a superset of the final
+k-NN, appended during the scan so an interrupted run keeps a useful
+file); the ranked CSV <prefix>.csv.xz holds the final per-query
+neighbours."""
+
+
+def _add_nearest(sub):
+    p = sub.add_parser(
+        "nearest", help="for every query sequence, find closest "
+        "neighbours in a (huge, streamed) aligned reference database",
+        epilog=_SCORE_EPILOG,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--acgt", action="store_true",
+                   help="consider only ACGT sites (unambiguous SNPs)")
+    p.add_argument("-k", "--keep_resolved", action="store_true",
+                   help="keep more resolved, exclude redundant queries")
+    p.add_argument("-x", "--exclude_self", action="store_true",
+                   help="exclude references with same name as a query")
+    p.add_argument("-n", "--nbest", type=int, default=100,
+                   help="number of best references per query (default 100)")
+    p.add_argument("--trim", type=int, default=0,
+                   help="sites to trim from both ends (sarscov2: 230)")
+    p.add_argument("-a", "--query_ambiguity", type=float, default=0.5)
+    p.add_argument("-A", "--ref_ambiguity", type=float, default=0.5)
+    p.add_argument("-p", "--pool", type=int, default=4096,
+                   help="references scored per device batch")
+    p.add_argument("-r", "--reference", action="append", required=True,
+                   help="aligned reference database (repeatable)")
+    p.add_argument("fasta", help="aligned query sequences")
+    p.add_argument("-t", "--nthreads", type=int, default=None,
+                   help="accepted for compatibility (device-parallel here)")
+    p.add_argument("-o", "--output", default=None,
+                   help="prefix of output alignment and csv")
+    p.add_argument("--devices", type=int, default=None,
+                   help="shard the scan over this many devices")
+    p.add_argument("--site-shards", type=int, default=1,
+                   help="additionally shard the alignment-site axis over "
+                        "this many of the devices (devices = db x site)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="multi-host scan: total number of host processes "
+                        "(each scans a contiguous file range; top-k merged "
+                        "over DCN at end of scan)")
+    p.add_argument("--host-id", type=int, default=0,
+                   help="this process's id in [0, num-hosts)")
+    p.add_argument("--coordinator", default=None,
+                   help="jax.distributed coordinator address host:port")
+    p.add_argument("--checkpoint", default=None,
+                   help="path for periodic scan checkpoints (resume-able)")
+    p.add_argument("--checkpoint_every", type=float, default=60.0,
+                   help="seconds between checkpoint snapshots")
+    p.add_argument("--no-prune", action="store_true",
+                   help="disable the (lossless) two-phase prefilter")
+    _add_codec(p)
+    return p
+
+
+def _add_codec(p):
+    p.add_argument("--codec", default="xz",
+                   choices=["xz", "bz2", "gz", "raw"],
+                   help="output compression (the reference's writer "
+                        "ladder xz>bz2>gz>raw, nearest.c:234-236; "
+                        "xz default)")
+
+
+def _add_align(sub):
+    p = sub.add_parser(
+        "align", help="align query sequences against a reference",
+        epilog="Global affine-gap alignment with the reference's "
+               "penalties {match 0, mismatch 4, gap open 6, gap "
+               "extend 2} (align.c:306, 'bwa-mem values').  Each "
+               "output row is projected onto reference coordinates: "
+               "insertions relative to the reference are DROPPED, "
+               "deletions become '-', so every row has exactly the "
+               "reference length (align.c:366-390).  Queries outside "
+               "[2/3, 3/2] of the reference length or failing the "
+               "ambiguity thresholds are skipped (align.c:190-202).  "
+               "Unlike WFA-Adapt, emitted rows carry an optimality "
+               "certificate: rows whose optimum escapes the banded "
+               "search are re-aligned at a provably sufficient band.",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--stdout", action="store_true",
+                   help="print alignment to stdout instead of xz file")
+    p.add_argument("-a", "--ambiguity", type=float, default=0.5)
+    p.add_argument("-p", "--pool", type=int, default=1024,
+                   help="query sequences aligned per device batch "
+                        "(1024 measured fastest on 30kb genomes)")
+    p.add_argument("--band", type=int, default=1024,
+                   help="DP band width (auto-widened on demand)")
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("fasta", nargs="+")
+    p.add_argument("-t", "--nthreads", type=int, default=None)
+    p.add_argument("-o", "--output", default=None)
+    _add_codec(p)
+    return p
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -28,36 +28,4 @@ __device__ __forceinline__ uint32_t eq_bytes(uint32_t a, uint32_t b) {
   return ~nz_bytes(a ^ b) & kLow;
 }
 
-// the word with every non-pure byte cleared: popc(pure_only(r) &
-// pure_only(q)) counts the sites where r and q are the same pure base
-__device__ __forceinline__ uint32_t pure_only(uint32_t x) {
-  return x & (pure_bytes(x) * 0x0Fu);
-}
-
-// Four codes at sites [site, site + 4) of reference row b (byte j of
-// the word is site + j); rows past B read 0.  Unpacked rows are W bytes
-// (site + 4 <= W); packed rows are rw bytes holding sites
-// 0 .. 2*rw - 1, even site in the high nibble, and sites past the row
-// read code 0 — so a packed byte unpacks straight into natural site
-// order.
-template <bool kPacked>
-__device__ __forceinline__ uint32_t load_ref_word(const uint8_t* r, long rw,
-                                                  int b, int B, int site) {
-  if (b >= B) return 0;
-  const uint8_t* row = r + (long)b * rw;
-  if (!kPacked) return *reinterpret_cast<const uint32_t*>(row + site);
-  long k = site >> 1;
-  uint32_t b0 = k < rw ? row[k] : 0;
-  uint32_t b1 = k + 1 < rw ? row[k + 1] : 0;
-  return (b0 >> 4) | ((b0 & 15u) << 8) | ((b1 >> 4) << 16) |
-         ((b1 & 15u) << 24);
-}
-
-// sum over the 16 lanes that share a threadIdx.x / 16 row of a warp
-__device__ __forceinline__ int sum16(int v) {
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 }  // namespace uvt

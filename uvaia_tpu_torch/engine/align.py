@@ -24,12 +24,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from uvaia_tpu.core.encoding import composition, encode, strict_chars_check
-from uvaia_tpu.io.fasta import FastaRecord, make_fasta_writer, read_fasta
-from uvaia_tpu.utils.prefetch import Prefetcher
-
+from ..core.encoding import composition, encode, strict_chars_check
+from ..io.fasta import FastaRecord, make_fasta_writer, read_fasta
 from ..ops import gotoh
 from ..utils.observe import maybe_profile
+from ..utils.prefetch import Prefetcher
 from .nearest import resolve_device
 from .query import log
 

@@ -25,15 +25,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from uvaia_tpu.io import store as store_mod
-from uvaia_tpu.io.compress import open_write
-from uvaia_tpu.io.fasta import WRITE_CODEC_SUFFIX, make_fasta_writer
-from uvaia_tpu.utils import checkpoint as ckpt_mod
-from uvaia_tpu.utils.observe import Chronometer
-
+from ..io import store as store_mod
+from ..io.compress import open_write
+from ..io.fasta import WRITE_CODEC_SUFFIX, make_fasta_writer
 from ..ops import scan
 from ..ops.host import IDX_SENTINEL
-from ..utils.observe import maybe_profile
+from ..utils import checkpoint as ckpt_mod
+from ..utils.observe import Chronometer, maybe_profile
 from .query import QueryPack, build_query_pack, log
 from .stream import EncodedStream, RefStreamer, dump_entry, write_dump
 
@@ -174,7 +172,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             x = x.copy()
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
-    # persistent-store inputs (uvaia_tpu/io/store.py): batches stream
+    # persistent-store inputs (io/store.py): batches stream
     # straight from mmap; the store's delta base replaces the query
     # majority so uploads reuse the stored diff lists
     n_store = sum(store_mod.is_store(p) for p in ref_paths)

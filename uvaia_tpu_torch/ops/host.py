@@ -5,8 +5,8 @@ Byte-identical copies of the numpy code in ``uvaia_tpu/ops/scan.py``
 (``_pad_to``, ``majority_code``, ``pack_codes`` and the sparse-delta
 encoder), which sits behind that module's top-level ``jax`` import.
 The port imports them from here so that nothing on its path needs jax.
-The native diff scan is shared: ``_delta_lib`` loads the same
-``uvaia_tpu.io.native`` library the JAX package uses.
+The native diff scan is the port's own copy of the JAX package's
+(csrc/host/fasta_io.cpp, loaded by io/native.py).
 """
 
 from __future__ import annotations
@@ -69,23 +69,10 @@ DELTA_BUCKETS = (128, 256, 512, 1024, 2048, 4096)
 
 
 def _delta_lib():
-    """Native encoder (fasta_io.cpp:ufa_delta_extract/repack), or None."""
-    from uvaia_tpu.io import native
-    lib = native.get_lib()
-    if lib is not None and not getattr(lib, "_delta_configured", False):
-        import ctypes
-        lib.ufa_delta_extract.restype = ctypes.c_long
-        lib.ufa_delta_extract.argtypes = [
-            ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.ufa_delta_repack.restype = None
-        lib.ufa_delta_repack.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
-            ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
-            ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
-        lib._delta_configured = True
-    return lib
+    """Native encoder (csrc/host/fasta_io.cpp:ufa_delta_extract/repack,
+    the port's own library), or None."""
+    from ..io import native
+    return native.get_lib()
 
 
 # per-thread scratch (B -> (pos, val, counts)): delta_encode may run

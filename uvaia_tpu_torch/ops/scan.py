@@ -35,8 +35,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-from uvaia_tpu.core.encoding import IS_AMBIG, IS_PURE
-
+from ..core.encoding import IS_AMBIG, IS_PURE
 from .host import IDX_SENTINEL, INT32_MIN, KEY_SHIFT, _pad_to, majority_code
 from .recon import delta_rebuild
 from .score_kernels import (acgt_counters, acgt_counters_packed, amb_corr,

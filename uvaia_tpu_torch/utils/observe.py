@@ -1,4 +1,6 @@
-"""Optional device profiling for the port's engine runs.
+"""Wall-clock chronometer and optional device profiling for the port's
+engine runs.  ``Chronometer`` is the JAX package's
+(``uvaia_tpu/utils/observe.py``).
 
 Set ``UVAIA_TPU_PROFILE=<dir>`` (the JAX package's variable) to record a
 ``torch.profiler`` trace of a run, written as ``<dir>/trace.json``
@@ -10,8 +12,20 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import time
+from dataclasses import dataclass, field
 
 import torch
+
+
+@dataclass
+class Chronometer:
+    """Wall time since construction (the reference's time0)."""
+
+    t0: float = field(default_factory=time.monotonic)
+
+    def total(self) -> float:
+        return time.monotonic() - self.t0
 
 
 @contextlib.contextmanager
