@@ -14,7 +14,9 @@ Phases (any failure exits non-zero, without the final result line):
      129 and 1000), with CUDA-event times of both, of the library
      yardstick where one exists (the counters and corrections as one-hot
      int8 products through torch._int_mm, checked equal to the kernel's
-     counters first) and each kernel's roofline bound from its shapes;
+     counters first; for the corrections, a kernel of microseconds, also
+     kernel and yardstick inside a CUDA graph, without the host's work)
+     and each kernel's roofline bound from its shapes;
   3. `nearest` end to end on the card against an independent numpy
      oracle (L=29903, Q=8, 2048 references, k=10), in full mode and
      with --acgt;
@@ -35,8 +37,15 @@ Phases (any failure exits non-zero, without the final result line):
      64 QC-passing rows (SNPs and indels, the first band level)
      byte-equal to a `--device cpu` run of the port on a 64-query file
      (run in a child process, from phase 1 on).
-Phase 2 also holds the two banded Gotoh kernels against their plain
-versions (B=64 at the first band level W=129, and B=4 at W=4097).  Each
+Phase 2 also holds amb_corr at the Q=1000 pack (its own number of
+ambiguity columns, logged) and the two banded Gotoh kernels against
+their plain versions: B=64 at the first band level W=129 and B=4 at
+W=4097 at the full reference length, and B=256 at W=129 (the main
+path's largest first-band dispatch) and the two widths either side of
+the kernel's one-warp / several-warps switch, which are timed at the
+full length but held against the plain version on the first 2,000
+reference bases (the plain version is a Python loop of ~0.5 ms a row).
+Each
 kernel's launch count comes from the path that runs it: the nearest
 kernels from phase 4 (full-mode ones from its full-mode pair, the
 --acgt ones from its --acgt pair), `gotoh_score` from phase 6,
@@ -45,9 +54,11 @@ runs.  No command runs `pair_counters` (nor, in the JAX package, the
 kernel it replaces): its count is its phase-2 launches.
 The line before the last is the card's `name, power.limit`; the line
 before it the kernels' JSON record (times at Q=64 and the first Gotoh
-band level; `bound_ms` the larger of the bytes over 3.35 TB/s and the
-operations over their peak rate, `library_ms` null where no single
-PyTorch call computes the function); the last line is the result.
+band level, the other shapes under `other_shapes`; `bound_ms` the
+largest of the bytes over 3.35 TB/s, the operations over their peak rate
+and, for the Gotoh rows, the serial chain of `bound`; `library_ms` null
+where no single PyTorch call computes the function); the last line is
+the result.
 Data comes from fixed seeds; files go to build/chip_smoke/ and are
 removed at the end.
 """
@@ -142,15 +153,36 @@ BYTES_PER_S = 3.35e12
 # integer operations per banded Gotoh cell: three adds, four mins and the
 # substitution select, plus two for the traceback bits (forward only)
 GOTOH_CELL_OPS = {"gotoh_forward": 10, "gotoh_score": 8}
+# Clocks between an integer add or min and an instruction that uses its
+# result, as microbenchmarks of Volta and later cards report it (Jia et
+# al., "Dissecting the NVIDIA Volta GPU Architecture via
+# Microbenchmarking", 2018: 4 cycles), at the 1.98 GHz boost clock.
+DEPENDENT_OP_CLOCKS = 4
+CLOCK_HZ = 1.98e9
 
 
-def bound(nbytes: int, int8_ops: float = 0.0, int32_ops: float = 0.0) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over their peak rate."""
+def gotoh_chain_ops(n: int, W: int) -> int:
+    """Dependent integer operations of the banded Gotoh recurrence, from
+    the recurrence and not from any implementation: DP row i needs row
+    i - 1, and inside a row the critical path is m (add), g (min), the
+    prefix minimum over the band (ceil(log2 W) mins, however many lanes
+    share it), y (add), h (min) and the clamp or mask: 5 + ceil(log2 W)
+    operations, n rows one after the other."""
+    return n * (5 + (W - 1).bit_length())
+
+
+def bound(nbytes: int, int8_ops: float = 0.0, int32_ops: float = 0.0,
+          chain_ops: int = 0) -> dict:
+    """The least time the card could take: the largest of the bytes over
+    the memory rate, the operations over their peak rate and, where the
+    work is a serial chain, its dependent operations at the card's
+    latency from one integer operation to the next that needs it."""
     t_bytes = nbytes / BYTES_PER_S * 1e3
     t_ops = max(int8_ops / INT8_OPS_PER_S, int32_ops / INT32_OPS_PER_S) * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    t_chain = chain_ops * DEPENDENT_OP_CLOCKS / CLOCK_HZ * 1e3
+    by = max((t_bytes, "bytes"), (t_ops, "operations"), (t_chain, "chain"))
+    return dict(bound_ms=by[0], bound_by=by[1], bytes_ms=t_bytes,
+                operations_ms=t_ops, chain_ms=t_chain)
 
 
 def counter_bound(r, q_ops, planes: int, n_out: int, cons: bool) -> dict:
@@ -306,6 +338,19 @@ def timed_ms(fn, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def timed_graph_ms(fn, calls: int = 20) -> float:
+    """Device milliseconds a call: `calls` calls of fn captured in one
+    CUDA graph and replayed, so no host work lies between the launches
+    (for a kernel of microseconds, whose call is mostly host work)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return timed_ms(graph.replay) / calls
+
+
 def max_err(a, b) -> float:
     """Largest absolute difference over parallel tuples of tensors;
     raises if any shape differs or any value is not equal."""
@@ -327,14 +372,19 @@ def max_err(a, b) -> float:
 
 
 def check_kernel(name: str, fn, plain, args, shape: str, bnd: dict,
-                 library=None) -> dict:
+                 library=None, plain_once: bool = False,
+                 device_only: bool = False) -> dict:
     """fn(*args) against plain(*args) on the same tensors, exactly, with
     CUDA-event times of both and of the library yardstick (library =
     (run, check): check(kernel outputs, run()) raises unless the library
     call computes the same counters); logs one line, returns the record
-    fields."""
+    fields.  plain_once: the plain version runs once, timed, for both
+    (a plain version of seconds a call).  device_only: also the device
+    time of kernel and library call inside a CUDA graph."""
     out = fn(*args)
-    err = max_err(out, plain(*args))
+    want, plain_ms = timed_once(lambda: plain(*args))
+    err = max_err(out, want)
+    del want
     library_ms = None
     if library is not None:
         run_lib, check = library
@@ -342,20 +392,30 @@ def check_kernel(name: str, fn, plain, args, shape: str, bnd: dict,
         library_ms = timed_ms(run_lib)
     del out
     ms = timed_ms(lambda: fn(*args))
-    plain_ms = timed_ms(lambda: plain(*args), reps=3)
+    if not plain_once:
+        plain_ms = timed_ms(lambda: plain(*args), reps=3)
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    extra = {}
+    if device_only:
+        extra = dict(device_ms=timed_graph_ms(lambda: fn(*args)),
+                     library_device_ms=timed_graph_ms(library[0]))
+        lib_txt += (f" (on the device alone: kernel "
+                    f"{extra['device_ms']:.4f} ms, library "
+                    f"{extra['library_device_ms']:.4f} ms)")
     log(f"  {name} {shape}: max_abs_err={err} kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library {lib_txt}, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-    return dict(max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **bnd)
+    return dict(shape=shape, max_abs_err=err, ms=ms, kernel_ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, **extra, **bnd)
 
 
 def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
     """Each nearest kernel vs its plain version on the same tensors: the
     full-mode and --acgt counters (unpacked and packed) and the pair
-    counters at every Q, the corrections and the rebuild at Q=64; the
-    counters and corrections also against their _int_mm yardstick."""
+    counters at every Q, the corrections at the Q=64 and the Q=1000 pack
+    (the columns where any query is ambiguous: more queries, more
+    columns) and the rebuild at Q=64; the counters and corrections also
+    against their _int_mm yardstick."""
     sk = score_kernels
     queries = query_set(rng, L, max(qs_list))
     refs = make_genomes(rng, B, L, queries, snps=20, amb=3, n_runs=2)
@@ -418,20 +478,26 @@ def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
              lambda o, g: library_equal([x[:, :nq] for x in g], o)))
         if Q == 64:
             records["pair_counters"].update(rec)
-        if Q != 64:
+        if Q not in (64, 1000):
             continue
         if qd.amb_sites is None:
-            raise AssertionError("the Q=64 pack has no ambiguity column")
+            raise AssertionError(f"the Q={Q} pack has no ambiguity column")
         ra = scan._take_fill(r, qd.amb_sites)
         qa = scan._take_fill(qd.q_full, qd.amb_sites)
         A = ra.shape[1]
-        records["amb_corr"].update(check_kernel(
+        rec = check_kernel(
             "amb_corr", sk.amb_corr, sk.amb_corr_plain, (ra, qa),
             f"B={B} A={A} Q={nq}",
             bound(ra.numel() + qa.numel() + 2 * B * nq * 4,
                   int8_ops=2.0 * B * nq * 2 * len(AMB_CODES) * A),
             (library_corr(ra, qa),
-             lambda o, g: library_equal([x[:, :nq] for x in g], o))))
+             lambda o, g: library_equal([x[:, :nq] for x in g], o)),
+            plain_once=Q != 64, device_only=True)
+        del ra, qa
+        if Q != 64:
+            records["amb_corr"].setdefault("other_shapes", []).append(rec)
+            continue
+        records["amb_corr"].update(rec)
         phase_rebuild(dev, codes, qd, records)
     # no command runs the pair counters: their count is their launches
     # in this phase
@@ -727,40 +793,64 @@ def timed_once(fn):
     return out, t0.elapsed_time(t1)
 
 
+GOTOH_SHORT_N = 2000   # reference bases the added shapes are checked on
+
+
 def phase_gotoh(dev, rng, records: dict) -> None:
     """Both banded Gotoh kernels vs their plain versions on the same
-    tensors: B=64 at the first band level (lo, W) = (-64, 129), and B=4
-    at W=4097; exact equality of tb at every cell, score, t_end and
-    edge.  Kernel times are medians over repeated launches, the plain
-    versions' one call each (a Python loop of ~30 launches per row)."""
+    tensors, exact at every tb cell, score, t_end and edge.  At the full
+    reference length: B=64 at the first band level (lo, W) = (-64, 129)
+    and B=4 at W=4097.  Timed at the full length but checked on the
+    first GOTOH_SHORT_N reference bases (the plain version is a Python
+    loop of ~30 launches a row): B=256 at W=129, and the widest band one
+    warp takes and the next one up (a CTA of several warps).  Kernel
+    times are medians over repeated launches, the plain versions' one
+    call each."""
     ref = ACGT[rng.integers(0, 4, N_REF)].tobytes()
     ref_d = torch.from_numpy(np.frombuffer(ref, np.uint8).copy()).to(dev)
-    for B, lo, W in ((64, -64, 129), (4, -2048, 4097)):
+    ref_short = ref_d[:GOTOH_SHORT_N].contiguous()
+    edge_w = gotoh_kernels.WARP_MAX_WIDTH
+    for B, W, full in ((64, 129, True), (4, 4097, True), (256, 129, False),
+                       (64, edge_w, False), (64, edge_w + 1, False)):
+        lo = -(W // 2)
         arr, lens = gotoh_batch(rng, ref, B, N_REF + 256)
         q_d = torch.from_numpy(arr).to(dev)
         ql_d = torch.from_numpy(lens).to(dev)
         args = (ref_d, q_d, ql_d, lo, W)
+        # the rows of the short check end inside the short reference's band
+        held = args if full else (
+            ref_short, q_d[:, :GOTOH_SHORT_N + 256].contiguous(),
+            torch.clamp(ql_d, max=GOTOH_SHORT_N + 40), lo, W)
         for name, fn, plain in (
                 ("gotoh_forward", gotoh_kernels.gotoh_forward,
                  gotoh_kernels.gotoh_forward_plain),
                 ("gotoh_score", gotoh_kernels.gotoh_score,
                  gotoh_kernels.gotoh_score_plain)):
-            want, plain_ms = timed_once(lambda: plain(*args))
-            err = max_err(fn(*args), want)
+            want, plain_ms = timed_once(lambda: plain(*held))
+            err = max_err(fn(*held), want)
             del want
             ms = timed_ms(lambda: fn(*args), reps=3)
             cells = B * N_REF * W
             bnd = bound(ref_d.numel() + q_d.numel() + 4 * B + 12 * B
                         + (cells if name == "gotoh_forward" else 0),
-                        int32_ops=GOTOH_CELL_OPS[name] * cells)
-            log(f"  {name} B={B} n={N_REF} lo={lo} W={W}: max_abs_err={err}"
-                f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-                f"none, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-            if W == 129:
-                records[name].update(max_abs_err=err, ms=ms, kernel_ms=ms,
-                                     plain_ms=plain_ms, library_ms=None,
-                                     **bnd)
-        del q_d
+                        int32_ops=GOTOH_CELL_OPS[name] * cells,
+                        chain_ops=gotoh_chain_ops(N_REF, W))
+            plan = gotoh_kernels.forward_plan(W)
+            shape = f"B={B} n={N_REF} lo={lo} W={W}"
+            log(f"  {name} {shape} (slots, warps)={plan}: max_abs_err={err}"
+                f" on n={held[0].shape[0]}, kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms (n={held[0].shape[0]}), library none, "
+                f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes "
+                f"{bnd['bytes_ms']:.4f}, operations "
+                f"{bnd['operations_ms']:.4f}, chain {bnd['chain_ms']:.4f})")
+            rec = dict(shape=shape, checked_n=held[0].shape[0],
+                       max_abs_err=err, ms=ms, kernel_ms=ms,
+                       plain_ms=plain_ms, library_ms=None, **bnd)
+            if (B, W) == (64, 129):
+                records[name].update(rec)
+            else:
+                records[name].setdefault("other_shapes", []).append(rec)
+        del q_d, held, args
         torch.cuda.empty_cache()
 
 
@@ -997,7 +1087,10 @@ def run(dev: torch.device, card: str) -> dict:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    return {"kernels": [{k: r[k] for k in keys} for r in records.values()]}
+    more = ("other_shapes", "device_ms", "library_device_ms")
+    return {"kernels": [{**{k: r[k] for k in keys},
+                         **{k: r[k] for k in more if k in r}}
+                        for r in records.values()]}
 
 
 def main() -> int:

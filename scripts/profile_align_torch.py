@@ -15,7 +15,8 @@ port's `run_align` on the card three times, pool 1024:
      copies, memsets) against the wall time, and device time by kernel
      (summed from the raw events: a run launches ~10^5-10^6 small ops,
      too many for key_averages).
-Prints one JSON object per run; needs a CUDA GPU.
+Prints one JSON object per run, each with the card's name and power
+limit as nvidia-smi gives them; needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -34,8 +36,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from uvaia_tpu.io.fasta import read_fasta  # noqa: E402
 from uvaia_tpu_torch.engine import align  # noqa: E402
+from uvaia_tpu_torch.io.fasta import read_fasta  # noqa: E402
 from uvaia_tpu_torch.ops import _build, gotoh, gotoh_kernels  # noqa: E402
 
 WORK = ROOT / "build" / "profile_align"
@@ -77,7 +79,10 @@ def main() -> int:
     chip_smoke.write_records(ref_fa, [("ref", ref)])
     chip_smoke.write_records(q_fa, chip_smoke.align_queries(
         rng, ref, args.queries))
-    dev = torch.cuda.get_device_name(0)
+    dev = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip() \
+        or torch.cuda.get_device_name(0)
     try:
         _build.lib()                                # builds the kernels
         stats, wall = run_once(ref_fa, q_fa, "plain")

@@ -38,7 +38,8 @@ from uvaia_tpu_torch.ops import _build  # noqa: E402
 OUT = ROOT / "build" / "tune_counters"
 # name -> text patches of a copy of mma_counts.cuh
 _NO_PRODUCTS = ("        wgmma_s8(acc[M::counter(p)], a[p],\n"
-                "                 kmajor_desc(qp + p * kQPlaneWords + ks * kKStepWords));",
+                "                 kmajor_desc(qp + M::qindex(p) * kQPlaneWords +\n"
+                "                             ks * kKStepWords));",
                 "        (void)qp;")
 _NO_QUERY_STAGING = ("    for (int p = 0; p < M::kQPlanes; ++p)\n"
                      "      *reinterpret_cast<uint4*>(qp + p * kQPlaneWords) =",

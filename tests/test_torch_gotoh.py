@@ -7,7 +7,11 @@ interpret mode, as tests/test_gotoh.py runs them.  The traceback walks,
 the output packing and the group aligners of ops/gotoh.py are held
 against their JAX counterparts, and align_batch against the O(nm)
 oracle.  tests/test_torch_gpu.py holds the CUDA kernels against these
-plain versions on the card.
+plain versions on the card.  The register kernel's schedule (slot
+ownership, the shifted query window, the lane prefix minimum, pad slots,
+the one-barrier exchange between warps) is restated in numpy here and
+held against the plain version and the JAX forward, since the kernel
+itself runs only on the card.
 """
 
 import jax.numpy as jnp
@@ -214,3 +218,174 @@ def test_host_half_is_the_jax_package_s():
             rng.integers(250, 350, 9), 300, -64, 129)
     for a, b in zip(pg.certify(*args), jg.certify(*args), strict=True):
         np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------------------------------
+# the register kernel's schedule (csrc/gotoh.cu:gotoh_reg_kernel), in numpy
+
+_BIG = 2**31 - 1
+_INF = pg.INF
+
+
+def _lane_up(v, d, fill):
+    """v of lane - d along the lane axis (axis 2), `fill` below lane d."""
+    out = np.full_like(v, fill)
+    out[:, :, d:] = v[:, :, :-d]
+    return out
+
+
+def _lanes_below_min(f):
+    """The kernel's radix-4 exclusive prefix minimum over the lanes."""
+    e = np.minimum.reduce([_lane_up(f, d, _BIG) for d in (1, 2, 3, 4)])
+    e = np.minimum.reduce([e] + [_lane_up(e, d, _BIG) for d in (4, 8, 12)])
+    return np.minimum(e, _lane_up(e, 16, _BIG))
+
+
+def _schedule_forward(ref, q, qlen, lo, W, S, nw):
+    """tb (n, B, W), score, t_end, edge as the register kernel computes
+    them: thread (warp, lane) owns slots [(32 warp + lane) S, ... + S),
+    arrays are (B, warp, lane, slot)."""
+    n, (B, m_pad) = len(ref), q.shape
+    t = np.arange(nw * 32 * S, dtype=np.int64).reshape(1, nw, 32, S)
+    t_last = (np.arange(nw, dtype=np.int64) + 1) * 32 * S - 1
+    ql = qlen.astype(np.int64).reshape(B, 1, 1, 1)
+    rows = np.arange(B).reshape(B, 1, 1, 1)
+
+    def qbyte(k):
+        k = np.broadcast_to(k, (B,) + k.shape[1:])
+        inb = (k >= 0) & (k < m_pad)
+        return np.where(inb, q[np.broadcast_to(rows, k.shape),
+                                np.clip(k, 0, m_pad - 1)], 0).astype(np.int64)
+
+    j0 = t + lo
+    H = np.where(j0 == 0, 0, np.where(j0 > 0, 6 + 2 * j0, _INF))
+    H = np.where((j0 > ql) | (t >= W), _INF, H)
+    X = np.full_like(H, _INF)
+    qc = qbyte(j0)
+    flat = lambda a: a.reshape(B, -1)
+    edge = np.minimum(flat(H)[:, 0], flat(H)[:, W - 1])
+    tb = np.zeros((n, B, W), np.uint8)
+    for i in range(1, n + 1):
+        fresh = qbyte((i + lo + t_last).reshape(1, nw, 1, 1))[:, :, 0, 0]
+        hn = np.full((B, nw, 32), _INF, np.int64)
+        xn = hn.copy()
+        hn[:, :, :31], xn[:, :, :31] = H[:, :, 1:, 0], X[:, :, 1:, 0]
+        # the first lane of each warp above publishes its slot's x
+        xo, xe = H[:, 1:, 0, 0] + 8, X[:, 1:, 0, 0] + 2
+        sh_x, sh_ext = np.minimum(xo, xe), xe <= xo          # (B, nw - 1)
+        j = i + lo + t
+        sub = np.where((j >= 1) & (j <= ql),
+                       np.where(qc == ref[i - 1], 0, 4), _INF)
+        m = H + sub
+        xo = np.concatenate([H[..., 1:], hn[..., None]], -1) + 8
+        xe = np.concatenate([X[..., 1:], xn[..., None]], -1) + 2
+        x, x_ext = np.minimum(xo, xe), xe <= xo
+        g = np.minimum(m, x)
+        v = g - 2 * t
+        below = np.concatenate(
+            [np.full((B, nw, 32, 1), _BIG, np.int64),
+             np.minimum.accumulate(v, -1)[..., :-1]], -1)
+        fold = v.min(-1)
+        run = _lanes_below_min(fold)
+        g_before = _lane_up(g[..., S - 1], 1, 0)
+        if nw > 1:
+            sh_fold = np.minimum(run[:, :, 31], fold[:, :, 31])
+            sh_g = g[:, :, 31, S - 1]
+            c = np.minimum(sh_fold[:, :-1], sh_x - 2 * t_last[:-1])
+            for w in range(1, nw):
+                run[:, w] = np.minimum(run[:, w], c[:, :w].min(1)[:, None])
+                g_before[:, w, 0] = np.minimum(sh_g[:, w - 1], sh_x[:, w - 1])
+            x[:, :-1, 31, S - 1] = sh_x
+            x_ext[:, :-1, 31, S - 1] = sh_ext
+            g[:, :-1, 31, S - 1] = np.minimum(g[:, :-1, 31, S - 1], sh_x)
+        y = np.where(t == 0, _INF, np.minimum(
+            8 + 2 * (t - 1) + np.minimum(run[..., None], below), _INF))
+        live = (j >= 0) & (j <= ql) & (t < W)
+        h = np.where(live, np.minimum(g, y), _INF)
+        xm = np.where(live, np.minimum(x, _INF), _INF)
+        gp = np.concatenate([g_before[..., None], g[..., :-1]], -1)
+        y_open = np.where(t == 0, _INF, gp + 8)
+        gfx = xm < m
+        src = np.where(y < g, 2, gfx)
+        byte = src | (x_ext << 2) | ((y < y_open) << 3) | (gfx << 4)
+        tb[i - 1] = flat(byte)[:, :W]
+        edge = np.minimum(edge, np.minimum(flat(h)[:, 0], flat(h)[:, W - 1]))
+        H, X = h, xm
+        q_in = np.empty((B, nw, 32), np.int64)
+        q_in[:, :, :31], q_in[:, :, 31] = qc[:, :, 1:, 0], fresh
+        qc = np.concatenate([qc[..., 1:], q_in[..., None]], -1)
+    assert (flat(H)[:, W:] == _INF).all() and (flat(X)[:, W:] == _INF).all()
+    t_end = qlen.astype(np.int64) - n - lo
+    score = np.where((t_end >= 0) & (t_end < W),
+                     flat(H)[np.arange(B), np.clip(t_end, 0, W - 1)], _INF)
+    return tb, score, t_end, edge
+
+
+def _off_band_inputs(seed, n, B):
+    """_inputs plus one row far shorter than the reference, one far
+    longer (both run off the band's query ends), and an empty row."""
+    ref, arr, lens = _inputs(seed, n, B)
+    lens[1] = n // 3
+    arr[1, lens[1]:] = 0
+    lens[2] = 0
+    arr[2] = 0
+    extra = np.frombuffer(bytes(ACGT[np.random.default_rng(seed).integers(
+        0, 4, n)]), np.uint8)
+    arr = np.concatenate([arr, np.zeros((B, n), np.uint8)], 1)
+    arr[3, lens[3]:lens[3] + n] = extra
+    lens[3] += n
+    return ref, arr, lens
+
+
+# width -> the plans held: forward_plan's own and, forced, plans of
+# several warps (pad slots inside the last warp, an exact fit, one slot a
+# thread) that only wider bands take on the card
+SCHEDULES = [(1, None), (2, None), (31, None), (33, None), (129, None),
+             (160, None), (161, None), (129, (2, 3)), (161, (1, 6)),
+             (64, (1, 2)), (70, (3, 2)), (33, (1, 8))]
+
+
+@pytest.mark.parametrize("W,plan", SCHEDULES)
+def test_register_schedule_matches_plain_and_jax(W, plan):
+    """The schedule equals the plain version and the JAX forward at every
+    tb cell, score, t_end and edge, with rows shorter and longer than
+    the reference whose band runs off both query ends."""
+    n, B = 90, 6
+    lo = -(W // 2)
+    ref, arr, lens = _off_band_inputs(W, n, B)
+    S, nw = plan or gk.forward_plan(W)
+    assert 32 * nw * S >= W
+    got = _schedule_forward(ref, arr, lens, lo, W, S, nw)
+    want = gk.gotoh_forward_plain(*_t(ref, arr, lens), lo, W)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w.numpy())
+    for g, w in zip(got, jg.gotoh_forward(*_j(ref, arr, lens), lo, W),
+                    strict=True):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_lanes_below_min_is_the_exclusive_prefix_min():
+    rng = np.random.default_rng(3)
+    f = rng.integers(-1000, 1000, (4, 2, 32)).astype(np.int64)
+    want = np.concatenate([np.full((4, 2, 1), _BIG),
+                           np.minimum.accumulate(f, 2)[:, :, :-1]], 2)
+    np.testing.assert_array_equal(_lanes_below_min(f), want)
+
+
+@pytest.mark.parametrize("W,want", [
+    (1, (1, 1)), (32, (1, 1)), (33, (2, 1)), (129, (5, 1)), (160, (5, 1)),
+    (161, (6, 1)), (257, (9, 1)), (513, (17, 1)), (544, (17, 1)),
+    (545, (3, 6)), (1025, (5, 7)), (4097, (17, 8)), (4352, (17, 8)),
+    (4353, (0, 0)), (15361, (0, 0))])
+def test_forward_plan(W, want):
+    """The variant comes from the width alone: one warp a row up to
+    WARP_MAX_WIDTH, a CTA up to REG_MAX_WIDTH, then the wide kernel; a
+    register plan always covers the band with a compiled slot count."""
+    assert gk.forward_plan(W) == want
+    S, nw = want
+    if S:
+        assert S in gk.REG_SLOTS and 1 <= nw <= gk.REG_MAX_WARPS
+        assert 32 * nw * S >= W > 32 * (nw - 1) * S
+        assert (nw == 1) == (W <= gk.WARP_MAX_WIDTH)
+    else:
+        assert W > gk.REG_MAX_WIDTH

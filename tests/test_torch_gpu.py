@@ -196,14 +196,42 @@ def test_gpu_counters_bit_identical_across_runs(cuda_device):
         _equal(fn(*args), first)
 
 
+def _corr_inputs(rng, dev, B, Q, A):
+    """Codes dense in ambiguity (every code 0-15), some all-15 columns
+    and an all-zero reference row."""
+    r = rng.integers(0, 16, (B, A)).astype(np.uint8)
+    q = rng.integers(0, 16, (Q, A)).astype(np.uint8)
+    r[:, :2] = 15
+    q[:, 1:3] = 15
+    r[0, :] = 0
+    return torch.from_numpy(r).to(dev), torch.from_numpy(q).to(dev)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,Q,A", [(300, 70, 40), (33, 3, 8)])
+@pytest.mark.parametrize("A", [4, 40, 256, 12000])
+@pytest.mark.parametrize("Q", [1, 64, 129, 1000])
+@pytest.mark.parametrize("B", [33, 4096])
 def test_gpu_corr_matches_plain(cuda_device, B, Q, A):
-    rng = np.random.default_rng(B + Q)
-    r = torch.from_numpy(rng.integers(0, 16, (B, A)).astype(np.uint8))
-    q = torch.from_numpy(rng.integers(0, 16, (Q, A)).astype(np.uint8))
-    r, q = r.to(cuda_device), q.to(cuda_device)
-    _equal(sk.amb_corr(r, q), sk.amb_corr_plain(r, q))
+    """The tensor-core corrections at ragged B, Q and A (A no multiple
+    of the 64-site chunk: the staging zero-fills the tail), with and
+    without site splits, equal the plain version and its plane
+    products."""
+    r, q = _corr_inputs(np.random.default_rng(B + Q + A), cuda_device,
+                        B, Q, A)
+    before = sk.amb_corr.launches
+    got = sk.amb_corr(r, q)
+    assert sk.amb_corr.launches == before + 1
+    _equal(got, sk.amb_corr_products(r, q))
+    if B * Q * A <= 4096 * 129 * 12000:     # the plain version's seconds
+        _equal(got, sk.amb_corr_plain(r, q))
+
+
+@pytest.mark.gpu
+def test_gpu_corr_every_code_pair(cuda_device):
+    codes = torch.arange(16, dtype=torch.uint8,
+                         device=cuda_device)[:, None].repeat(1, 12)
+    _equal(sk.amb_corr(codes, codes.clone()),
+           sk.amb_corr_plain(codes, codes.clone()))
 
 
 @pytest.mark.gpu
@@ -296,16 +324,29 @@ def _gotoh_inputs(rng, n, B, dev):
             for x in (np.frombuffer(ref, np.uint8).copy(), arr, lens)]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("n,lo,width,B", [
+GOTOH_CASES = [
     (300, -64, 129, 13), (80, -8, 17, 8), (300, -512, 1025, 3),
-    # H and X in shared memory, the query read from device memory
+    # the wide kernel: H and X in shared memory, the query read from
+    # device memory
     (2000, -7168, 14337, 2),
     # an exact-fallback width: H and X in the device-memory scratch
-    (300, -7680, 15361, 2)])
+    (300, -7680, 15361, 2)]
+# every band width of the register kernel's variants (one warp a row up
+# to 544, then a CTA) at n = 1, 2 and 400, the batch sizes in turn
+GOTOH_CASES += [(n, -(W // 2), W, (1, 3, 64, 256)[(k + m) % 4])
+                for k, W in enumerate((1, 32, 33, 129, 257, 513, 544, 545,
+                                       1025, 4097, 4352, 4353))
+                for m, n in enumerate((1, 2, 400))]
+GOTOH_CASES += [(400, -64, 129, 256), (400, -64, 129, 64), (400, -70, 129, 1),
+                (400, -256, 513, 256), (400, -2048, 4097, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,lo,width,B", GOTOH_CASES)
 def test_gpu_gotoh_matches_plain(cuda_device, n, lo, width, B):
     rng = np.random.default_rng(n + width)
-    args = _gotoh_inputs(rng, n, B, cuda_device)
+    args = _gotoh_inputs(rng, max(n, 64), B, cuda_device)
+    args[0] = args[0][:n].contiguous()
     before = gk.gotoh_forward.launches, gk.gotoh_score.launches
     _equal(gk.gotoh_forward(*args, lo, width),
            gk.gotoh_forward_plain(*args, lo, width))
@@ -313,6 +354,22 @@ def test_gpu_gotoh_matches_plain(cuda_device, n, lo, width, B):
            gk.gotoh_score_plain(*args, lo, width))
     assert (gk.gotoh_forward.launches, gk.gotoh_score.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_gpu_redesigned_kernels_bit_identical_across_runs(cuda_device):
+    """gotoh_forward, gotoh_score (one warp a row, a CTA a row, the wide
+    kernel) and amb_corr (a site-split launch: int32 atomics) give
+    bit-identical outputs when run twice."""
+    rng = np.random.default_rng(77)
+    args = _gotoh_inputs(rng, 400, 64, cuda_device)
+    for lo, width in ((-64, 129), (-512, 1025), (-2200, 4401)):
+        for fn in (gk.gotoh_forward, gk.gotoh_score):
+            first = [x.clone() for x in fn(*args, lo, width)]
+            _equal(fn(*args, lo, width), first)
+    r, q = _corr_inputs(rng, cuda_device, 300, 7, 12000)
+    first = [x.clone() for x in sk.amb_corr(r, q)]
+    _equal(sk.amb_corr(r, q), first)
 
 
 @pytest.mark.gpu

@@ -131,6 +131,61 @@ def test_corr_matches_pallas(B, Q, A):
     assert np.asarray(t).any() and np.asarray(p).any()
 
 
+def _all_code_pairs(A=12):
+    """r (16, A), q (16, A): row a holds code a in every column, so the
+    (16, 16) outputs hold every pair of the 16 codes, A times."""
+    codes = np.repeat(np.arange(16, dtype=np.uint8)[:, None], A, axis=1)
+    return codes, codes.copy()
+
+
+def _random_pack(B, Q, A, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 16, (B, A)).astype(np.uint8),
+            rng.integers(0, 16, (Q, A)).astype(np.uint8))
+
+
+@pytest.mark.parametrize("case", ["pairs", (37, 9, 44), (130, 70, 20),
+                                  (5, 3, 4), (64, 64, 100)])
+def test_corr_plane_products_match_plain_and_pallas(case):
+    """The 22 plane products the CUDA kernel runs (16 query planes:
+    one-hot ambiguity codes, mask bits on ambiguous codes, the ambiguous
+    plane) equal the per-site definition and the Pallas kernel in
+    interpret mode — on every pair of the 16 codes, and on random packs
+    whose column count is no multiple of 32."""
+    r, q = _all_code_pairs() if case == "pairs" else _random_pack(*case, 5)
+    assert case == "pairs" or r.shape[1] % 32
+    got = sk.amb_corr_products(_t(r), _t(q))
+    for g, w in zip(got, sk.amb_corr_plain(_t(r), _t(q)), strict=True):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    want = pallas_score.corr_via_pallas(jnp.asarray(r), jnp.asarray(q),
+                                        interpret=True)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == "pairs":
+        t, p = (x.numpy() // r.shape[1] for x in got)
+        amb = np.array([bin(c).count("1") >= 2 for c in range(16)])
+        np.testing.assert_array_equal(t, np.diag(amb).astype(np.int32))
+        assert p[3, 12] == 0 and p[3, 5] == 0 and p[15, 15] == -3
+        assert p[7, 11] == -1 and not p[~amb].any() and not p[:, ~amb].any()
+
+
+def test_corr_code_tables():
+    """The ambiguity codes are the codes of two or more bases, and the
+    complement of a two-base code is a two-base code."""
+    assert sk.AMB_CODES == tuple(c for c in range(16)
+                                 if bin(c).count("1") >= 2)
+    assert sk.PAIR_CODES == tuple(c for c in range(16)
+                                  if bin(c).count("1") == 2)
+    assert {15 - c for c in sk.PAIR_CODES} == set(sk.PAIR_CODES)
+
+
+def test_corr_of_an_empty_column_set():
+    z = torch.zeros((3, 0), dtype=torch.uint8)
+    t, p = sk.amb_corr(z, torch.zeros((2, 0), dtype=torch.uint8))
+    assert t.shape == p.shape == (3, 2) and not t.any() and not p.any()
+
+
 def _delta_batch(seed, B=24, L=900):
     """Rows with SNPs, zero runs (so zero-run markers occur), a masked
     tail, and one ok=False row, delta-encoded against a base."""

@@ -1,11 +1,12 @@
-// The shared tile routine of the two counter kernels (score.cu, acgt.cu):
-// (B, Q) integer counters of 0/1 feature planes, summed over sites, as
-// int8 tensor-core products — the TPU kernels' own formulation
+// The shared tile routine of the counter kernels (score.cu, acgt.cu) and
+// of the ambiguity corrections (corr.cu): (B, Q) integer counters of
+// small-integer feature planes, summed over sites, as int8 tensor-core
+// products — the TPU kernels' own formulation
 // (uvaia_tpu/ops/pallas_score.py:_features and the int8 MXU `_dot`s).
 //
-// Every counter is a sum over planes p and sites s of R_p[b, s] * Q_p[q, s]
-// with R_p, Q_p in {0, 1}: one int8 tensor-core product
-// per plane (`wgmma.mma_async.m64n64k32.s32.s8.s8`, sm_90a).  A plane is
+// Every counter is a sum over products p and sites s of R_p[b, s] *
+// Q_p[q, s] with R_p, Q_p in {0, 1} (corr.cu: R_p also -1): one int8
+// tensor-core product per plane pair (`wgmma.mma_async.m64n64k32.s32.s8.s8`, sm_90a).  A plane is
 // a SWAR function of a 32-bit word of four codes (swar.cuh), and a word
 // of four consecutive sites is exactly what one register of an int8 A
 // fragment holds (four consecutive k), so reference fragments are built
@@ -73,6 +74,14 @@ constexpr uint64_t kLeadBytes = 128, kStrideBytes = 256;
 // valid_sites).
 struct FullMode {
   static constexpr int kQOps = 1, kQPlanes = 9, kCounters = 3;
+  // product p multiplies reference plane p with query plane qindex(p)
+  static constexpr int kProducts = kQPlanes;
+  // kRagged: the site count need not be a multiple of the chunk (the
+  // tail is zero-filled in staging)
+  static constexpr bool kRagged = false;
+  // the fewest chunks a site split may hold
+  static constexpr int kMinSplitChunks = 4;
+  __device__ __forceinline__ static int qindex(int p) { return p; }
   __device__ __forceinline__ static int counter(int j) {
     return j < 4 ? 0 : (j < 8 ? 1 : 2);
   }
@@ -111,6 +120,10 @@ struct FullMode {
 // valid_sites).
 struct AcgtMode {
   static constexpr int kQOps = 2, kQPlanes = 10, kCounters = 4;
+  static constexpr int kProducts = kQPlanes;
+  static constexpr bool kRagged = false;
+  static constexpr int kMinSplitChunks = 4;
+  __device__ __forceinline__ static int qindex(int p) { return p; }
   __device__ __forceinline__ static int counter(int j) {
     return 2 * (j / 5) + (j % 5 != 0);
   }
@@ -134,6 +147,68 @@ struct AcgtMode {
     a[0] += both & ~eq_bytes(x, c);
     a[1] += both;
     a[4] += (f >> 1) & kLow;
+  }
+};
+
+// 1 where a byte holds code c (0..15), per byte
+__device__ __forceinline__ uint32_t code_bytes(uint32_t x, int c) {
+  const uint32_t b0 = (c & 1) ? x : ~x, b1 = (c & 2) ? x >> 1 : ~(x >> 1);
+  const uint32_t b2 = (c & 4) ? x >> 2 : ~(x >> 2);
+  const uint32_t b3 = (c & 8) ? x >> 3 : ~(x >> 3);
+  return b0 & b1 & b2 & b3 & kLow;
+}
+
+// The full-mode ambiguity corrections (corr.cu) over the ambiguity codes
+// (two or more bases: 3, 5, 6, 7, 9..15), 22 products of 16 query planes:
+//   corr_t = sum_c [r == c][q == c]                         (11 products)
+//   corr_p = [r amb][q amb] - sum_k [r amb, bit k][q amb, bit k]
+//            - sum_{c of two bases} [r == c][q == 15 - c]   (1 + 4 + 6)
+// since for two ambiguous codes [(r & q) != 0] fails only when both hold
+// two bases and are complements.  A subtracted product carries its sign
+// in the reference plane (bytes of -1), so it adds into the same
+// accumulator.  Query planes: 0..10 the one-hot planes of the ambiguity
+// codes, 11..14 the mask bits on ambiguous codes, 15 the ambiguous plane.
+struct CorrMode {
+  static constexpr int kQOps = 1, kQPlanes = 16, kCounters = 2;
+  static constexpr int kProducts = 22;
+  static constexpr bool kRagged = true;
+  // a 64-query pack has a few hundred ambiguity columns: four chunks on
+  // 32 of the 132 SMs unless each chunk may be a split
+  static constexpr int kMinSplitChunks = 1;
+  // the k-th ambiguity code, k in 0..10, and its inverse
+  __host__ __device__ static constexpr int code(int k) {
+    return k >= 4 ? k + 5 : (k == 0 ? 3 : k + 4);
+  }
+  __host__ __device__ static constexpr int index_of(int c) {
+    return c >= 9 ? c - 5 : (c == 3 ? 0 : c - 4);
+  }
+  // the k-th code of two bases, k in 0..5: 3, 5, 6, 9, 10, 12
+  __host__ __device__ static constexpr int pair_code(int k) {
+    return k < 3 ? (k == 0 ? 3 : k + 4) : (k == 3 ? 9 : (k == 4 ? 10 : 12));
+  }
+  __device__ __forceinline__ static int counter(int p) { return p >= 11; }
+  __device__ __forceinline__ static int qindex(int p) {
+    return p < 16 ? p : index_of(15 - pair_code(p - 16));
+  }
+  __device__ __forceinline__ static uint32_t rplane(int p, uint32_t x,
+                                                    uint32_t f) {
+    const uint32_t amb = (f >> 1) & ~f & kLow;   // non-zero and not pure
+    if (p < 11) return code_bytes(x, code(p));
+    if (p < 15) return ((x >> (p - 11)) & amb) * 0xFFu;
+    if (p == 15) return amb;
+    return code_bytes(x, pair_code(p - 16)) * 0xFFu;
+  }
+  __device__ __forceinline__ static uint32_t qplane(int j,
+                                                    const uint32_t* y) {
+    const uint32_t x = y[0];
+    if (j < 11) return code_bytes(x, code(j));
+    const uint32_t amb = nz_bytes(x) & ~pure_bytes(x);
+    if (j < 15) return (x >> (j - 11)) & amb;
+    return amb;
+  }
+  // no consensus counters
+  __device__ __forceinline__ static void cons(uint32_t, uint32_t, uint32_t,
+                                              uint32_t, uint32_t, uint32_t*) {
   }
 };
 
@@ -246,6 +321,12 @@ __device__ __forceinline__ void copy_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// the bytes of a 16-byte piece at column `col` that lie inside a row of W
+__device__ __forceinline__ int piece_bytes(long col, int W) {
+  const long left = W - col;
+  return (int)(left < 0 ? 0 : (left < 16 ? left : 16));
+}
+
 // r: (B, rw) codes (packed: 2 * rw sites); q[o]: (Q, W) query operands;
 // cons: (W,); sites [64 * chunk0, 64 * chunk1) of this CTA's split.
 // out[k]: (B, Q) int32; cons5: (B, 5) int32.  `atomic`: add into zeroed
@@ -270,7 +351,7 @@ counters_kernel(const uint8_t* __restrict__ r, long rw,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b0 = blockIdx.x * kRows, qbase = blockIdx.y * kCols;
-  const int nchunks = W / kChunk;
+  const int nchunks = (W + kChunk - 1) / kChunk;
   const int c0 = blockIdx.z * chunks_per_split;
   const int c1 = min(nchunks, c0 + chunks_per_split);
   const bool do_cons = kCons && blockIdx.y == 0;
@@ -302,20 +383,26 @@ counters_kernel(const uint8_t* __restrict__ r, long rw,
     const long site = (long)c * kChunk;
     const int b = b0 + sr;
     if (!kPacked) {
-      const uint8_t* src = r + (long)b * rw + site + 32 * half;
-      const int n = b < B ? 16 : 0;
-      copy16(st + 16 * tid, src, n, r);
-      copy16(st + kRawRef / 2 + 16 * tid, src + 16, n, r);
+      const long col = site + 32 * half;
+      const uint8_t* src = r + (long)b * rw + col;
+      const int live = b < B ? 16 : 0;
+      copy16(st + 16 * tid, src,
+             M::kRagged ? min(live, piece_bytes(col, W)) : live, r);
+      copy16(st + kRawRef / 2 + 16 * tid, src + 16,
+             M::kRagged ? min(live, piece_bytes(col + 16, W)) : live, r);
     } else {
       const long k0 = site / 2 + 16 * half;
       const long left = rw - k0;
       const int n = b < B ? (int)(left < 0 ? 0 : (left < 16 ? left : 16)) : 0;
       copy16(st + 16 * tid, r + (long)b * rw + k0, n, r);
     }
+    const int qlive = qrow < Q ? 16 : 0;
 #pragma unroll
     for (int o = 0; o < M::kQOps; ++o)
       copy16(st + kRawRef + o * kRawQ + 16 * tid,
-             qops[o] + (long)qrow * W + site + 4 * qword, qrow < Q ? 16 : 0,
+             qops[o] + (long)qrow * W + site + 4 * qword,
+             M::kRagged ? min(qlive, piece_bytes(site + 4 * qword, W))
+                        : qlive,
              qops[o]);
     if (do_cons && tid < kChunk / 16)
       copy16(st + kRawRef + M::kQOps * kRawQ + 16 * tid,
@@ -428,18 +515,19 @@ counters_kernel(const uint8_t* __restrict__ r, long rw,
         xr[i] = rr[o];
         fr[i] = rf[o];
       }
-      uint32_t a[M::kQPlanes][4];
+      uint32_t a[M::kProducts][4];
 #pragma unroll
-      for (int p = 0; p < M::kQPlanes; ++p)
+      for (int p = 0; p < M::kProducts; ++p)
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[p][i] = M::rplane(p, xr[i], fr[i]);
 #pragma unroll
       for (int k = 0; k < M::kCounters; ++k) fence_regs(acc[k]);
       wgmma_fence();
 #pragma unroll
-      for (int p = 0; p < M::kQPlanes; ++p)
+      for (int p = 0; p < M::kProducts; ++p)
         wgmma_s8(acc[M::counter(p)], a[p],
-                 kmajor_desc(qp + p * kQPlaneWords + ks * kKStepWords));
+                 kmajor_desc(qp + M::qindex(p) * kQPlaneWords +
+                             ks * kKStepWords));
       wgmma_commit();
       if (ks == 0 && do_cons) consensus(buf);
       if (ks == kKSteps - 1 && next >= 0) {
@@ -451,7 +539,7 @@ counters_kernel(const uint8_t* __restrict__ r, long rw,
       for (int k = 0; k < M::kCounters; ++k) fence_regs(acc[k]);
       // the A registers stay allocated until the products have read them
 #pragma unroll
-      for (int p = 0; p < M::kQPlanes; ++p)
+      for (int p = 0; p < M::kProducts; ++p)
 #pragma unroll
         for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(a[p][i]));
     }
@@ -513,12 +601,13 @@ counters_kernel(const uint8_t* __restrict__ r, long rw,
 
 // Site splits for `tiles` CTAs on `slots` resident CTA slots: 1 when the
 // tiles fill the card, else the least split whose CTAs fill at least 85%
-// of the slots of their last wave (at most one split per 4 chunks).
-inline int choose_splits(long tiles, int slots, int nchunks) {
-  if (tiles >= slots || nchunks < 8) return 1;
+// of the slots of their last wave (at most one split per `min_chunks`
+// chunks, and none below two such splits).
+inline int choose_splits(long tiles, int slots, int nchunks, int min_chunks) {
+  if (tiles >= slots || nchunks < 2 * min_chunks) return 1;
   int best = 1;
   double best_eff = 0.0;
-  for (int s = 1; s <= 32 && s * 4 <= nchunks; ++s) {
+  for (int s = 1; s <= 32 && s * min_chunks <= nchunks; ++s) {
     long ctas = tiles * s;
     long waves = (ctas + slots - 1) / slots;
     double eff = double(ctas) / double(waves * slots);
@@ -529,7 +618,7 @@ inline int choose_splits(long tiles, int slots, int nchunks) {
 }
 
 // Launch on `s`: outs[0 .. M::kCounters) (B, Q) int32, cons5 (B, 5) int32
-// (kCons only); W % 64 == 0.  Returns cudaGetLastError().
+// (kCons only); W % 64 == 0 unless M::kRagged.  Returns cudaGetLastError().
 template <class M, bool kPacked, bool kCons>
 int launch(const uint8_t* r, long rw, const uint8_t* q0, const uint8_t* q1,
            const uint8_t* cons, int B, int Q, int W, int32_t* const* outs,
@@ -551,9 +640,10 @@ int launch(const uint8_t* r, long rw, const uint8_t* q0, const uint8_t* q1,
                                                   smem);
     slots = nsm * (per_sm > 0 ? per_sm : 1);
   }
-  const int nchunks = W / kChunk;
+  const int nchunks = (W + kChunk - 1) / kChunk;
   dim3 grid((B + kRows - 1) / kRows, (Q + kCols - 1) / kCols, 1);
-  int splits = choose_splits((long)grid.x * grid.y, slots, nchunks);
+  int splits = choose_splits((long)grid.x * grid.y, slots, nchunks,
+                             M::kMinSplitChunks);
   const int per = (nchunks + splits - 1) / splits;
   splits = per > 0 ? (nchunks + per - 1) / per : 1;
   grid.z = splits;
@@ -563,7 +653,8 @@ int launch(const uint8_t* r, long rw, const uint8_t* q0, const uint8_t* q1,
       cudaMemsetAsync(outs[k], 0, sizeof(int32_t) * (size_t)B * Q, s);
     if (kCons) cudaMemsetAsync(cons5, 0, sizeof(int32_t) * (size_t)B * 5, s);
   }
-  int32_t* o[4] = {outs[0], outs[1], outs[2],
+  int32_t* o[4] = {outs[0], outs[1],
+                   M::kCounters > 2 ? outs[2] : nullptr,
                    M::kCounters > 3 ? outs[3] : nullptr};
   kern<<<grid, kThreads, smem, s>>>(r, rw, q0, q1, cons, B, Q, W,
                                     per > 0 ? per : 1, atomic, o[0], o[1],

@@ -44,8 +44,9 @@ _SIGNATURES = {
     "uvt_amb_corr": [_P, _P, _I, _I, _I, _P, _P, _P],
     "uvt_delta_rebuild": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
     "uvt_gotoh_forward": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P,
-                          _P, _P],
-    "uvt_gotoh_score": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _P],
+                          _P, _I, _I, _P],
+    "uvt_gotoh_score": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I,
+                        _P],
 }
 
 _lock = threading.Lock()
@@ -148,6 +149,13 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(t) -> int:
-    """Raw pointer of PyTorch's current stream on ``t``'s device."""
+    """Raw pointer of PyTorch's current stream on ``t``'s device (by the
+    direct binding where this PyTorch has it: a tenth of the host time
+    of building a Stream object, which counts beside a 20 us kernel)."""
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream

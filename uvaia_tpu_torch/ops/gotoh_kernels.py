@@ -24,11 +24,34 @@ import torch
 from . import _build
 from .gotoh import GAP_EXT, GAP_OPEN, INF, MISMATCH, OE
 
-# H100: 227 KB of shared memory per block.  H and X rows, double
-# buffered, take 16 bytes per band slot; wider bands keep them in a
-# device-memory scratch buffer that the wrapper allocates.
+# The register kernel of csrc/gotoh.cu keeps a thread's band slots in
+# registers: these slot counts are compiled, for one warp a query row
+# (no barrier in the row loop) or a CTA of up to REG_MAX_WARPS warps
+# (one barrier a row).
+REG_SLOTS = (1, 2, 3, 4, 5, 6, 9, 17)
+REG_MAX_WARPS = 8
+WARP_MAX_WIDTH = 32 * REG_SLOTS[-1]
+REG_MAX_WIDTH = REG_MAX_WARPS * WARP_MAX_WIDTH
+# The wide kernel (beyond REG_MAX_WIDTH) double buffers the H and X rows
+# in the H100's 227 KB of shared memory per block, 16 bytes per band
+# slot; wider bands keep them in a device-memory scratch buffer that the
+# wrapper allocates.
 SMEM_BYTES = 232448 - 1024
 HX_SMEM_MAX_WIDTH = SMEM_BYTES // 16
+
+
+def forward_plan(width: int) -> tuple[int, int]:
+    """(slots, warps) of the kernel variant for a band of `width` slots,
+    from the width alone: the fewest slots a thread that let one warp
+    cover the band (width <= WARP_MAX_WIDTH), else the fewest that let
+    REG_MAX_WARPS warps cover it, with as many warps as the band then
+    needs; (0, 0), the wide kernel, beyond REG_MAX_WIDTH."""
+    for max_warps in (1, REG_MAX_WARPS):
+        for slots in REG_SLOTS:
+            if 32 * max_warps * slots >= width:
+                return slots, -(-width // (32 * slots))
+    return 0, 0
+
 
 # ----------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the kernels are held
@@ -151,7 +174,9 @@ def _check(ref, q, qlen, width: int) -> None:
         raise ValueError(f"band width {width} must be at least 1")
 
 
-def _launch(ref, q, qlen, lo: int, W: int, emit_tb: bool):
+def _launch(ref, q, qlen, lo: int, W: int, emit_tb: bool, plan=None):
+    """Launch the forward kernel; `plan` (slots, warps) overrides
+    forward_plan(W) for the tuning script."""
     n = ref.shape[0]
     B, m_pad = q.shape
     dev = q.device
@@ -161,21 +186,23 @@ def _launch(ref, q, qlen, lo: int, W: int, emit_tb: bool):
           if emit_tb else None)
     if B == 0:
         return tb, score, t_end, edge
-    # H and X beyond the shared-memory budget live in device memory:
-    # (B, 4, W) int32, two rows of each, double buffered
-    scratch = (torch.empty((B, 4, W), **i32) if W > HX_SMEM_MAX_WIDTH
-               else None)
+    slots, warps = forward_plan(W) if plan is None else plan
+    # the wide kernel's H and X beyond the shared-memory budget live in
+    # device memory: (B, 4, W) int32, two rows of each, double buffered
+    scratch = (torch.empty((B, 4, W), **i32)
+               if slots == 0 and W > HX_SMEM_MAX_WIDTH else None)
     sp = 0 if scratch is None else scratch.data_ptr()
     lib = _build.lib()
     if emit_tb:
         rc = lib.uvt_gotoh_forward(
             ref.data_ptr(), n, q.data_ptr(), B, m_pad, qlen.data_ptr(), lo,
             W, tb.data_ptr(), score.data_ptr(), t_end.data_ptr(),
-            edge.data_ptr(), sp, _build.stream_ptr(q))
+            edge.data_ptr(), sp, slots, warps, _build.stream_ptr(q))
     else:
         rc = lib.uvt_gotoh_score(
             ref.data_ptr(), n, q.data_ptr(), B, m_pad, qlen.data_ptr(), lo,
-            W, score.data_ptr(), edge.data_ptr(), sp, _build.stream_ptr(q))
+            W, score.data_ptr(), edge.data_ptr(), sp, slots, warps,
+            _build.stream_ptr(q))
     _build.check(rc, "gotoh_forward" if emit_tb else "gotoh_score")
     return tb, score, t_end, edge
 

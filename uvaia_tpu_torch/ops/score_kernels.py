@@ -169,6 +169,37 @@ def amb_corr_plain(r: torch.Tensor, q: torch.Tensor, chunk: int = 1 << 24):
     return torch.cat(ts), torch.cat(ps)
 
 
+# the ambiguity codes (two or more bases) and, among them, those of
+# exactly two bases, whose complement 15 - c is one of them again
+AMB_CODES = (3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15)
+PAIR_CODES = (3, 5, 6, 9, 10, 12)
+
+
+def amb_corr_products(r: torch.Tensor, q: torch.Tensor):
+    """amb_corr_plain as the 22 plane products csrc/corr.cu runs on the
+    tensor cores (CorrMode in csrc/mma_counts.cuh), over 16 query
+    planes: the one-hot planes oh_c of the 11 ambiguity codes, the four
+    mask bits on ambiguous codes, and the ambiguous plane.
+
+        corr_t = sum_c oh_c(r) . oh_c(q)
+        corr_p = amb(r) . amb(q) - sum_k (amb(r) bit_k(r)) . (amb(q) bit_k(q))
+                 - sum_{c of two bases} oh_c(r) . oh_{15-c}(q)
+
+    For two ambiguous codes [(r & q) != 0] fails only when both hold
+    two bases and are complements, which the last sum takes off again.
+    Exact on every pair of the 16 codes."""
+    ri, qi = r.to(torch.int32), q.to(torch.int32)
+    ra, qa = _is_amb(ri), _is_amb(qi)
+    corr_t = sum(exact_counts(ri == c, qi == c) for c in AMB_CODES)
+    corr_p = exact_counts(ra, qa)
+    for k in range(4):
+        corr_p = corr_p - exact_counts(ra & ((ri >> k) & 1 != 0),
+                                       qa & ((qi >> k) & 1 != 0))
+    for c in PAIR_CODES:
+        corr_p = corr_p - exact_counts(ri == c, qi == 15 - c)
+    return corr_t, corr_p
+
+
 # ----------------------------------------------------------------------
 # wrappers
 
@@ -272,16 +303,16 @@ def amb_corr(r: torch.Tensor, q: torch.Tensor):
     if A % 4 or r.data_ptr() % 4 or q.data_ptr() % 4:
         raise ValueError("the correction kernel needs A % 4 == 0 and "
                          "4-byte aligned rows")
-    t = torch.empty((B, Q), dtype=torch.int32, device=r.device)
-    p = torch.empty((B, Q), dtype=torch.int32, device=r.device)
-    if B == 0:
-        return t, p
+    if B == 0 or Q == 0 or A == 0:
+        z = torch.zeros((B, Q), dtype=torch.int32, device=r.device)
+        return z, z.clone()
+    out = torch.empty((2, B, Q), dtype=torch.int32, device=r.device)
     rc = _build.lib().uvt_amb_corr(r.data_ptr(), q.data_ptr(), B, Q, A,
-                                   t.data_ptr(), p.data_ptr(),
+                                   out.data_ptr(), out.data_ptr() + 4 * B * Q,
                                    _build.stream_ptr(r))
     _build.check(rc, "amb_corr")
     amb_corr.launches += 1
-    return t, p
+    return out[0], out[1]
 
 
 amb_corr.launches = 0
