@@ -36,7 +36,22 @@ Phases (any failure exits non-zero, without the final result line):
      taken, every row certified, `gotoh_forward` launched, and the first
      64 QC-passing rows (SNPs and indels, the first band level)
      byte-equal to a `--device cpu` run of the port on a 64-query file
-     (run in a child process, from phase 1 on).
+     (run in a child process, from phase 1 on);
+  8. `ball` through its command line on phase 4's files (16384 genomes,
+     64 queries; raw output) at a radius that keeps a share of the rows:
+     the delta step (through delta_rebuild) and the packed step both
+     taken; on the first 2048 genomes the kept `.aln.xz` byte-equal
+     under `--device cuda` and `--device cpu`, and the kept names equal
+     to a numpy restatement of the staged keep rule;
+  9. `legacy` through its command line: those 2048 references x 64
+     queries, the printed table and the score store equal under
+     `--device cuda` and `--device cpu`, the counters of 64 x 8 pairs
+     equal to a numpy oracle.
+Phase 2 holds delta_rebuild at the main path's batch (E=128, markers on
+every row) and on synthetic entries at E = 1024 and 4096, with int32
+positions and at the ragged width w = L; each shape is also timed with
+the one-CTA-a-row kernel it replaced (`earlier_ms`) and inside a CUDA
+graph (`device_ms`: a call of ~0.1 ms is half host work).
 Phase 2 also holds amb_corr at the Q=1000 pack (its own number of
 ambiguity columns, logged) and the two banded Gotoh kernels against
 their plain versions: B=64 at the first band level W=129 and B=4 at
@@ -48,7 +63,8 @@ reference bases (the plain version is a Python loop of ~0.5 ms a row).
 Each
 kernel's launch count comes from the path that runs it: the nearest
 kernels from phase 4 (full-mode ones from its full-mode pair, the
---acgt ones from its --acgt pair), `gotoh_score` from phase 6,
+--acgt ones from its --acgt pair; delta_rebuild from phase 4 and phase
+8's `ball` run together), `gotoh_score` from phase 6,
 `gotoh_forward` from phase 7, every count set to 0 just before its
 runs.  No command runs `pair_counters` (nor, in the JAX package, the
 kernel it replaces): its count is its phase-2 launches.
@@ -65,6 +81,8 @@ removed at the end.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import lzma
 import os
@@ -143,6 +161,10 @@ NEAREST_KERNELS = ("score_counters", "score_counters_packed", "amb_corr",
                    "delta_rebuild")
 ACGT_KERNELS = ("acgt_counters", "acgt_counters_packed")
 N_REF = 29903          # the SARS-CoV-2 reference length
+SUBSET = 2048          # references of the cuda-vs-cpu runs of ball, legacy
+# phase 8's radius: a reference sits ~19 base differences and ~3
+# ambiguity-code mismatches from the query it was derived from
+BALL_RADIUS = 22
 
 # Roofline rates of one H100 SXM: dense int8 tensor cores and HBM3 from
 # NVIDIA's data sheet; the CUDA-core int32 rate as 132 SMs x 64 int32
@@ -380,7 +402,7 @@ def check_kernel(name: str, fn, plain, args, shape: str, bnd: dict,
     call computes the same counters); logs one line, returns the record
     fields.  plain_once: the plain version runs once, timed, for both
     (a plain version of seconds a call).  device_only: also the device
-    time of kernel and library call inside a CUDA graph."""
+    time of the kernel (and the library call) inside a CUDA graph."""
     out = fn(*args)
     want, plain_ms = timed_once(lambda: plain(*args))
     err = max_err(out, want)
@@ -397,11 +419,12 @@ def check_kernel(name: str, fn, plain, args, shape: str, bnd: dict,
     lib_txt = "none" if library_ms is None else f"{library_ms:.3f} ms"
     extra = {}
     if device_only:
-        extra = dict(device_ms=timed_graph_ms(lambda: fn(*args)),
-                     library_device_ms=timed_graph_ms(library[0]))
-        lib_txt += (f" (on the device alone: kernel "
-                    f"{extra['device_ms']:.4f} ms, library "
-                    f"{extra['library_device_ms']:.4f} ms)")
+        extra = dict(device_ms=timed_graph_ms(lambda: fn(*args)))
+        lib_txt += f" (on the device alone: kernel {extra['device_ms']:.4f} ms"
+        if library is not None:
+            extra["library_device_ms"] = timed_graph_ms(library[0])
+            lib_txt += f", library {extra['library_device_ms']:.4f} ms"
+        lib_txt += ")"
     log(f"  {name} {shape}: max_abs_err={err} kernel {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, library {lib_txt}, bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
@@ -504,10 +527,75 @@ def phase_kernels(dev, rng, B: int, L: int, qs_list, records: dict) -> None:
     records["pair_counters"]["launches"] = sk.pair_counters.launches
 
 
+def synthetic_deltas(rng, B: int, E: int, L: int, pos_dtype=np.uint16):
+    """(pos (B, E), val (B, E)) as the encoder orders them: E/2..E real
+    entries a row at ascending unique positions, then padding at
+    pos = L + slot.  Odd rows carry run markers on ~3% of their entries,
+    starts and ends in turn; row 1 ends on a start (a run to the row
+    end) and row 3 holds two starts in a row (a nested one)."""
+    stride = L // E
+    pos = (np.arange(E, dtype=np.int64) * stride)[None, :] \
+        + rng.integers(0, stride, (B, E))
+    val = rng.integers(0, 16, (B, E)).astype(np.uint8)
+    mark = rng.random((B, E)) < 0.03
+    mark[0::2] = False
+    order = np.cumsum(mark, axis=1)
+    val[mark & (order % 2 == 1)] = 16
+    ends = mark & (order % 2 == 0)
+    val[ends] = 32 + rng.integers(0, 16, int(ends.sum()))
+    slots = np.arange(E)[None, :]
+    real = slots < rng.integers(E // 2, E + 1, (B, 1))
+    if B > 3:
+        real[[1, 3], :E // 2] = True
+        val[1, E // 2 - 1] = 16
+        val[3, 4:6] = 16
+    pos = np.where(real, pos, L + slots)
+    val[~real] = 0
+    return pos.astype(pos_dtype), val
+
+
+def row_per_cta_rebuild():
+    """The one-CTA-a-row rebuild (scripts/recon_row_per_cta.cu, the
+    design csrc/recon.cu replaced), built here and bound with ctypes: a
+    callable (pos, val, base, width) -> rows, timed beside the kernel
+    in the same run.  The port never calls it."""
+    import ctypes
+    src = ROOT / "scripts" / "recon_row_per_cta.cu"
+    lib_path = _build.BUILD_DIR / "librecon_row_per_cta.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                    str(src)], check=True)
+    fn = ctypes.CDLL(str(lib_path)).uvt_delta_rebuild_row_per_cta
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, P, P, I, I, I, I, P, P]
+    fn.restype = I
+
+    def rebuild(pos, val, base, width):
+        out = torch.empty((pos.shape[0], width), dtype=torch.uint8,
+                          device=pos.device)
+        _build.check(fn(pos.data_ptr(), pos.element_size(), val.data_ptr(),
+                        base.data_ptr(), *pos.shape, base.shape[0], width,
+                        out.data_ptr(), _build.stream_ptr(pos)),
+                     "row_per_cta_rebuild")
+        return out
+    return rebuild
+
+
+def rebuild_bound(pos, val, L: int, width: int) -> dict:
+    """Entries and base read once, the rows written once."""
+    return bound(pos.numel() * pos.element_size() + val.numel() + L
+                 + pos.shape[0] * width)
+
+
 def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
     """delta_rebuild on a delta-encoded batch with SNPs, N-runs (zero-run
-    markers), masked tails and an ok=False row."""
-    B = codes.shape[0]
+    markers on every row), masked tails and an ok=False row, as phase 4
+    feeds it; then on synthetic entries at E = 1024 and 4096, with int32
+    positions and at the ragged width w = L (odd rows with markers, an
+    open and a nested run among them).  Every shape is also timed with
+    the one-CTA-a-row kernel this one replaced (`earlier_ms`)."""
+    B, L = codes.shape
     ok = np.ones(B, dtype=bool)
     ok[B // 2] = False
     base = qd.delta_base.cpu().numpy()
@@ -520,13 +608,37 @@ def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
     args = (pos, val, qd.delta_base, qd.width)
     out = recon.delta_rebuild(*args)
     want = np.where(ok[:, None], codes, base[None, :])
-    if not np.array_equal(out[:, :codes.shape[1]].cpu().numpy(), want):
+    if not np.array_equal(out[:, :L].cpu().numpy(), want):
         raise AssertionError("delta_rebuild did not give back the rows")
-    records["delta_rebuild"].update(check_kernel(
-        "delta_rebuild", recon.delta_rebuild, recon.delta_rebuild_plain,
-        args, f"B={B} E={pos.shape[1]} w={qd.width}",
-        bound(pos.numel() * pos.element_size() + val.numel() + qd.width
-              + B * qd.width)))
+    earlier = row_per_cta_rebuild()
+    rng = np.random.default_rng(64)
+
+    def check(args):
+        pos, val, base_d, width = args
+        rec = check_kernel(
+            "delta_rebuild", recon.delta_rebuild, recon.delta_rebuild_plain,
+            args, f"B={pos.shape[0]} E={pos.shape[1]} w={width} "
+            f"pos={str(pos.dtype).split('.')[-1]}",
+            rebuild_bound(pos, val, base_d.shape[0], width),
+            device_only=True)
+        if not torch.equal(earlier(*args), recon.delta_rebuild(*args)):
+            raise AssertionError(
+                f"the one-CTA-a-row kernel and delta_rebuild disagree at "
+                f"{rec['shape']}")
+        rec["earlier_ms"] = timed_ms(lambda: earlier(*args))
+        rec["earlier_device_ms"] = timed_graph_ms(lambda: earlier(*args))
+        log(f"    one CTA a row: {rec['earlier_ms']:.3f} ms a call, "
+            f"{rec['earlier_device_ms']:.4f} ms on the device alone")
+        return rec
+
+    records["delta_rebuild"].update(check(args))
+    for E, dt, width in ((1024, np.uint16, qd.width),
+                         (4096, np.uint16, qd.width),
+                         (128, np.int32, qd.width), (128, np.uint16, L)):
+        p, v = (torch.from_numpy(x).to(dev)
+                for x in synthetic_deltas(rng, B, E, L, dt))
+        records["delta_rebuild"].setdefault("other_shapes", []).append(
+            check((p, v, qd.delta_base, width)))
 
 
 PURE = np.isin(np.arange(16), (1, 2, 4, 8))
@@ -621,6 +733,7 @@ def phase_scale(dev, rng, n: int, L: int, Q: int, nbest: int,
     q_fa, db_fa = WORK / "s_q.fa", WORK / "s_db.fa"
     write_fasta(q_fa, "q", queries)
     write_fasta(db_fa, "r", refs)
+    write_fasta(WORK / "s_db_sub.fa", "r", refs[:SUBSET])   # phases 8, 9
     del refs
     counts = {}
     for acgt, names in ((False, NEAREST_KERNELS), (True, ACGT_KERNELS)):
@@ -709,6 +822,164 @@ def phase_steps(dev, rng, L: int, Q: int, B: int, k: int, steps: int,
             log(f"  {name}{' --acgt' if acgt else ''} L={L} "
                 f"Q={pack.n_query} B={B} k={k}: {ms:.3f} ms/step, "
                 f"{B / ms * 1e3:,.0f} genomes/s ({card})")
+
+# ----------------------------------------------------------------------
+# ball and legacy
+
+
+def read_letters(path: Path, count: int) -> np.ndarray:
+    """(count, L) letters of the first records of a one-line-a-record
+    FASTA file."""
+    rows = []
+    with open(path, "rb") as f:
+        for line in f:
+            if not line.startswith(b">"):
+                rows.append(np.frombuffer(line.rstrip(b"\n"), np.uint8))
+                if len(rows) == count:
+                    break
+    return np.stack(rows)
+
+
+def ball_oracle_keep(codes: np.ndarray, pack, dist: int) -> np.ndarray:
+    """The staged keep rule from its definition (text mode): d_cons over
+    the constant sites against the consensus; keep iff 2 d_cons <= dist
+    or d_cons + min over queries of the mismatches at the polymorphic
+    sites <= dist.  A mismatch: both codes non-zero and different."""
+    def mism(a, r):                            # a (S,), r (B, S)
+        return ((a != 0) & (r != 0) & (a != r)).sum(1)
+    cs = np.concatenate([pack.idx_c, pack.idx_m])
+    d_cons = mism(pack.consensus[cs], codes[:, cs])
+    d_q = np.stack([mism(q[pack.idx], codes[:, pack.idx])
+                    for q in pack.codes], axis=1)
+    return (2 * d_cons <= dist) | (d_cons + d_q.min(1) <= dist)
+
+
+def phase_ball(dev, n: int, pool: int, radius: int) -> int:
+    """`ball` at scale on the card, then cuda vs cpu vs the numpy keep
+    rule on the first SUBSET genomes; returns delta_rebuild's launches
+    over the run at scale."""
+    from uvaia_tpu_torch.engine import ball
+    q_fa, db_fa, sub_fa = (WORK / x for x in ("s_q.fa", "s_db.fa",
+                                              "s_db_sub.fa"))
+    stats = {}
+    run_ball = ball.run_ball
+
+    def keep_stats(*a, **kw):
+        stats["s"] = run_ball(*a, **kw)
+        return stats["s"]
+
+    def cli(db, out, device, *extra):
+        argv = ["ball", "-r", str(db), str(q_fa), "-d", str(radius), "-p",
+                str(pool), "-o", str(WORK / out), "--device", device, *extra]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli_main(argv) != 0:
+            raise AssertionError(f"ball {out} failed")
+        return time.perf_counter() - t0, stats.pop("s")
+
+    ball.run_ball = keep_stats
+    try:
+        recon.delta_rebuild.launches = 0
+        wall, st = cli(db_fa, "ball_cuda", str(dev), "--codec", "raw")
+        launches = recon.delta_rebuild.launches
+        log(f"  ball at scale: {n} genomes, Q=64, radius {radius}, pool="
+            f"{pool}, raw output: kept {st['kept']} ({st['invalid']} too "
+            f"ambiguous), steps {st['steps']}, {wall:.3f} s wall, "
+            f"{n / wall:,.1f} genomes/s")
+        if st["count"] != n or not 0 < st["kept"] < n:
+            raise AssertionError(f"ball kept {st['kept']} of {st['count']}")
+        if launches != st["steps"]["delta"] or launches == 0 \
+                or st["steps"]["packed"] == 0:
+            raise AssertionError(
+                f"ball: delta_rebuild launches {launches}, steps "
+                f"{st['steps']}: want both steps taken, one launch a "
+                f"delta step")
+        _, st_cuda = cli(sub_fa, "ball_sub_cuda", str(dev))
+        _, st_cpu = cli(sub_fa, "ball_sub_cpu", "cpu")
+    finally:
+        ball.run_ball = run_ball
+    a, b = ((WORK / f"ball_sub_{d}.aln.xz").read_bytes()
+            for d in ("cuda", "cpu"))
+    if a != b or st_cuda != st_cpu:
+        raise AssertionError("ball: cuda and cpu runs differ")
+    pack = build_query_pack(str(q_fa), always_exclude_redundant=True)
+    want = ball_oracle_keep(LUT[read_letters(sub_fa, SUBSET)], pack, radius)
+    kept = [r[:r.index(b"\n")].decode() for r in
+            lzma.decompress(a).split(b">")[1:]]
+    if kept != [f"r{i}" for i in np.nonzero(want)[0]]:
+        raise AssertionError("ball: the kept names differ from the numpy "
+                             "keep rule")
+    log(f"  ball on the first {SUBSET}: cuda and cpu .aln.xz byte-equal "
+        f"({len(a)} bytes), {len(kept)} kept as the numpy keep rule says")
+    return launches
+
+
+def legacy_oracle(q: np.ndarray, r: np.ndarray):
+    """(acgt matches, text matches, weighted partial, valid pairs) of two
+    code rows, from their definitions, the partial in float64."""
+    pop = np.array([bin(c).count("1") for c in range(16)])
+    valid = (q != 0) & (r != 0)
+    eq = valid & (q == r)
+    w = pop[q & r] / np.maximum(pop[q] * pop[r], 1)
+    return (int((eq & (pop[q] == 1)).sum()), int(eq.sum()), float(w.sum()),
+            int(valid.sum()))
+
+
+def phase_legacy(dev) -> None:
+    """`legacy` on the card and on the CPU: the same table and scores;
+    64 x 8 pairs against the numpy oracle."""
+    from uvaia_tpu_torch.engine import legacy
+    q_fa, sub_fa = WORK / "s_q.fa", WORK / "s_db_sub.fa"
+    results = {}
+    run_legacy = legacy.run_legacy
+
+    def keep_result(*a, **kw):
+        results["r"] = run_legacy(*a, **kw)
+        return results["r"]
+
+    legacy.run_legacy = keep_result
+    out = {}
+    try:
+        for device in (str(dev), "cpu"):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["legacy", "-r", str(sub_fa), str(q_fa), "-n",
+                               "8", "--device", device])
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"legacy --device {device} failed")
+            out[device] = (buf.getvalue(), results.pop("r"))
+            log(f"  legacy --device {device}: {SUBSET} references x 64 "
+                f"queries x {L_SITES} sites: {wall:.3f} s wall, "
+                f"{SUBSET * 64 / wall:,.0f} pairs/s, table of "
+                f"{buf.getvalue().count(chr(10))} lines")
+    finally:
+        legacy.run_legacy = run_legacy
+    (table, (scores, qnames, rnames)), (table_cpu, (scores_cpu, *_)) = \
+        out[str(dev)], out["cpu"]
+    if table != table_cpu or len(table.split("\n")) < 2 + 64 * 8:
+        raise AssertionError("legacy: the cuda and cpu tables differ")
+    for a, b in zip(scores, scores_cpu, strict=True):
+        if not np.array_equal(a, b):
+            raise AssertionError("legacy: cuda and cpu scores differ")
+    if len(rnames) != SUBSET or len(qnames) != 64:
+        raise AssertionError(f"legacy scored {len(rnames)} x {len(qnames)}")
+    refs = LUT[read_letters(sub_fa, 64)]
+    queries = LUT[read_letters(q_fa, 64)]
+    qrow = {f"q{i}": i for i in range(64)}
+    for qi, qname in enumerate(qnames[:8]):
+        for ri in range(64):
+            a, t, w, v = legacy_oracle(queries[qrow[qname]], refs[ri])
+            got = [x[ri, qi] for x in scores]
+            if (got[0], got[1], got[3]) != (a, t, v) \
+                    or abs(got[2] - w) > 1e-6 * w:
+                raise AssertionError(f"legacy scores {got} of {qname} vs "
+                                     f"r{ri}: oracle {(a, t, w, v)}")
+    log("  legacy: cuda and cpu tables and scores equal; 64 x 8 pairs "
+        "equal to the numpy oracle (counters exact, partial to 1e-6)")
+
 
 # ----------------------------------------------------------------------
 # align: synthetic unaligned genomes (letters)
@@ -1033,7 +1304,7 @@ def finish_cpu_subset(work: dict) -> None:
 
 
 def run(dev: torch.device, card: str) -> dict:
-    """Phases 1-7 on `dev`; returns the kernels' JSON records."""
+    """Phases 1-9 on `dev`; returns the kernels' JSON records."""
     WORK.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(2024)
     records = {name: dict(name=name, route="cuda", source=w["source"],
@@ -1079,6 +1350,13 @@ def run(dev: torch.device, card: str) -> dict:
             dev, card, work)
         finish_cpu_subset(work)
         lap("phase 7")
+        log("phase 8: ball at scale, cuda vs cpu vs the numpy keep rule")
+        records["delta_rebuild"]["launches"] += phase_ball(
+            dev, 16384, BATCH, BALL_RADIUS)
+        lap("phase 8")
+        log("phase 9: legacy, cuda vs cpu vs the numpy oracle")
+        phase_legacy(dev)
+        lap("phase 9")
     finally:
         if work is not None and work["proc"].poll() is None:
             work["proc"].kill()
@@ -1087,7 +1365,8 @@ def run(dev: torch.device, card: str) -> dict:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    more = ("other_shapes", "device_ms", "library_device_ms")
+    more = ("other_shapes", "device_ms", "library_device_ms", "earlier_ms",
+            "earlier_device_ms")
     return {"kernels": [{**{k: r[k] for k in keys},
                          **{k: r[k] for k in more if k in r}}
                         for r in records.values()]}

@@ -4,13 +4,14 @@
 
 Generates chip_smoke.py's phase-7 data (synthetic SARS-CoV-2-length
 queries against a 29,903-bp reference, fixed seed), then runs the
-port's `run_align` on the card three times, pool 1024:
-  1. plain: wall time and seqs/s;
+port's `run_align` on the card four times, pool 1024:
+  1. plain: wall time and seqs/s, then the same with the walks'
+     iterations launched op by op instead of replayed from a CUDA graph;
   2. with host timers around each stage: host read + QC (the reader's
      work, timed alone on the same file), the upload, the forward (the
      wrapper, synchronised), the traceback-events loop and the dense
-     walk (with their loop iterations), host decode_events and the
-     writer;
+     walk (with their loop iterations and host reads of the loop
+     condition), host decode_events and the writer;
   3. under torch.profiler (CUDA activity): device busy time (kernels,
      copies, memsets) against the wall time, and device time by kernel
      (summed from the raw events: a run launches ~10^5-10^6 small ops,
@@ -89,6 +90,16 @@ def main() -> int:
         print(json.dumps({"run": "plain", "device": dev, "wall_s": wall,
                           "seqs_per_s": args.queries / wall,
                           "n_output": stats.n_output}), flush=True)
+        capture = gotoh._capture_step
+        gotoh._capture_step = lambda body, carry: None    # no graph: eager
+        try:
+            stats, wall = run_once(ref_fa, q_fa, "eager")
+        finally:
+            gotoh._capture_step = capture
+        print(json.dumps({"run": "plain, walks launched op by op",
+                          "device": dev, "wall_s": wall,
+                          "seqs_per_s": args.queries / wall,
+                          "n_output": stats.n_output}), flush=True)
 
         acc: dict[str, float] = {}
         t0 = time.perf_counter()
@@ -111,13 +122,7 @@ def main() -> int:
         gotoh.decode_events = timed(orig[2], acc, "decode_events")
         gotoh.gotoh_traceback = timed(orig[4], acc, "dense_traceback", True)
         align._make_device_batch = timed(orig[5], acc, "upload", True)
-        any_active = gotoh._any_active
-
-        def counted(*a):
-            acc["walk_iterations"] = acc.get("walk_iterations", 0) + 1
-            return any_active(*a)
-
-        gotoh._any_active = counted
+        walks_before = dict(gotoh.walk_counts)
 
         def writer(*a, **kw):
             w = orig[3](*a, **kw)
@@ -132,7 +137,10 @@ def main() -> int:
             (gotoh_kernels.gotoh_forward, gotoh.gotoh_traceback_events,
              gotoh.decode_events, align.make_fasta_writer,
              gotoh.gotoh_traceback, align._make_device_batch) = orig
-            gotoh._any_active = any_active
+        acc["walk_iterations"] = (gotoh.walk_counts["iterations"]
+                                  - walks_before["iterations"])
+        acc["walk_host_reads"] = (gotoh.walk_counts["host_reads"]
+                                  - walks_before["host_reads"])
         print(json.dumps({"run": "timers", "device": dev, "wall_s": wall,
                           **{k: round(v, 6) for k, v in acc.items()}}),
               flush=True)

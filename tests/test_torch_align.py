@@ -123,6 +123,24 @@ def _adversarial(rng):
     return ["q.fa"], {}
 
 
+def _gap_runs(rng):
+    """Gap runs longer than the walks' probes: truncated and extended
+    ends, a long deletion and a long insertion inside, both at once; the
+    same with the event capacity at 4, so the dense walk retires them."""
+    n = 640
+    ref = rand_dna(rng, n)
+    ins = rand_dna(rng, 150)
+    _write("ref.fa", [("r", ref)])
+    _write("q.fa", [
+        ("cut_start", ref[140:]), ("cut_end", ref[:n - 170]),
+        ("cut_both", ref[135:n - 140]), ("long_del", ref[:250] + ref[410:]),
+        ("long_ins", ref[:400] + ins + ref[400:]),
+        ("lead_ins", ins + ref), ("tail_ins", ref + ins[:140]),
+        ("del_and_ins", ref[:150] + ref[290:450] + ins[:135] + ref[450:]),
+        ("snps", _mutant(rng, ref, 9))])
+    return ["q.fa"], dict(pool=4)
+
+
 SCENARIOS = {
     # name: (file writer, seed, extra AlignConfig fields, patches)
     "end_to_end": (_end_to_end, 9, {}, {}),
@@ -134,6 +152,9 @@ SCENARIOS = {
     "small_chunk_plan": (_chunked, 31, {}, {"TB_BUDGET": 640 * 256 * 10}),
     "multi_file": (_multi_file, 21, {}, {}),
     "band_edge_adversarial": (_adversarial, 1234, {}, {}),
+    "gap_runs": (_gap_runs, 77, {}, {}),
+    "gap_runs_dense_walk": (_gap_runs, 77, {}, {"EV_CAP": 1}),
+    "gap_runs_narrow_band": (_gap_runs, 77, dict(band=64), {}),
 }
 
 

@@ -25,6 +25,7 @@ from uvaia_tpu_torch.ops import gotoh as pg
 from uvaia_tpu_torch.ops import gotoh_kernels as gk
 
 from test_gotoh import oracle_score, rand_dna
+from torch_cases import GAP_CASES, gap_case
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -150,6 +151,71 @@ def test_dense_traceback_matches_jax(n, lo, width, B):
                               jnp.asarray(t_end.numpy()), lo, n)
     _equal(got, want)
     assert got[1].all()
+
+
+@pytest.mark.parametrize("name", GAP_CASES)
+def test_walks_retire_gap_runs_as_jax_walks_cells(name):
+    """Both walks on paths with gap runs longer than the probe, runs at
+    row 0, column 0 and the band's borders: events, counts, flags, cost
+    and bytes equal the JAX package's cell-by-cell walks, in far fewer
+    iterations than the run has cells."""
+    ref, arr, lens, lo, W = gap_case(name)
+    n = len(ref)
+    tb, _, t_end, _ = gk.gotoh_forward(*_t(ref, arr, lens), lo, W)
+    tb_j, t_end_j = jnp.asarray(tb.numpy()), jnp.asarray(t_end.numpy())
+    before = dict(pg.walk_counts)
+    _equal(pg.gotoh_traceback_events(tb, t_end, lo, n, jg.EV_CAP),
+           jg.gotoh_traceback_events(tb_j, t_end_j, lo, n, jg.EV_CAP))
+    ev_iters = pg.walk_counts["iterations"] - before["iterations"]
+    got = pg.gotoh_traceback(tb, *_t(ref, arr), t_end, lo, n)
+    _equal(got, jg.gotoh_traceback(tb_j, *_j(ref, arr), t_end_j, lo, n))
+    if name != "outside_band":
+        assert got[1].all()
+        assert ev_iters <= 3 * pg.HOST_READ_EVERY, ev_iters
+    assert got[2].item() == name.startswith(("band_edge", "outside"))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_walks_match_jax_on_arbitrary_traceback_bytes(seed):
+    """Random tb bytes (every source, both extension bits, source 3,
+    which no forward emits and no walk leaves): paths leave the band,
+    reads clamp, rows get stuck until the iteration cap.  The walks
+    equal the JAX package's at every output all the same."""
+    rng = np.random.default_rng(seed)
+    n, B, lo, W = 24, 16, -6, 11
+    tb = rng.integers(0, 32, (n, B, W)).astype(np.uint8)
+    if seed % 2:
+        tb &= ~np.uint8(3 * (rng.random((n, B, W)) < 0.8))   # mostly M
+    tb[(tb & 3) == 3] &= np.uint8(0xFC | (seed % 3 == 0) * 3)
+    ref = ACGT[rng.integers(0, 4, n)]
+    arr = ACGT[rng.integers(0, 4, (B, n + 9))]
+    t_end = rng.integers(0, W, B).astype(np.int32)
+    for K in (4, 64):
+        _equal(pg.gotoh_traceback_events(*_t(tb, t_end), lo, n, K),
+               jg.gotoh_traceback_events(*_j(tb, t_end), lo, n, K))
+    _equal(pg.gotoh_traceback(*_t(tb, ref, arr, t_end), lo, n),
+           jg.gotoh_traceback(*_j(tb, ref, arr, t_end), lo, n))
+
+
+@pytest.mark.parametrize("every", [1, 5, 64])
+def test_host_read_interval_changes_nothing(every, monkeypatch):
+    """An iteration on finished rows is idle: reading the loop condition
+    every iteration, every 5 or every 64 gives the same outputs, and the
+    host is asked about once in `every` iterations."""
+    n, lo, W = 300, -64, 129
+    ref, arr, lens = _inputs(350, n, 13)
+    tb, _, t_end, _ = gk.gotoh_forward(*_t(ref, arr, lens), lo, W)
+    want_ev = pg.gotoh_traceback_events(tb, t_end, lo, n, 3)
+    want = pg.gotoh_traceback(tb, *_t(ref, arr), t_end, lo, n)
+    monkeypatch.setattr(pg, "HOST_READ_EVERY", every)
+    before = dict(pg.walk_counts)
+    _equal(pg.gotoh_traceback_events(tb, t_end, lo, n, 3),
+           [x.numpy() for x in want_ev])
+    _equal(pg.gotoh_traceback(tb, *_t(ref, arr), t_end, lo, n),
+           [x.numpy() for x in want])
+    iters = pg.walk_counts["iterations"] - before["iterations"]
+    reads = pg.walk_counts["host_reads"] - before["host_reads"]
+    assert iters % every == 0 and reads == iters // every + 2
 
 
 @pytest.mark.parametrize("E", [8, 1024])

@@ -21,6 +21,8 @@ from uvaia_tpu_torch.engine.query import QueryPack
 from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
 from uvaia_tpu_torch.ops import host, recon, scan, score_kernels as sk
 
+import torch_cases
+
 LETTERS = np.frombuffer(b"ACGTACGTACGTACGTN-RYMKSWBDHV", dtype=np.uint8)
 
 
@@ -257,6 +259,82 @@ def test_gpu_rebuild_matches_plain(cuda_device, pos_dtype):
     np.testing.assert_array_equal(got[:, :L].cpu().numpy(), want)
 
 
+def _rebuild_on_card(dev, pos, val, base, width, base_offset=0):
+    """The kernel's rows and the plain version's on the same tensors."""
+    b = torch.from_numpy(np.concatenate(
+        [np.zeros(base_offset, np.uint8), base])).to(dev)[base_offset:]
+    args = [torch.from_numpy(x).to(dev) for x in (pos, val)] + [b]
+    before = recon.delta_rebuild.launches
+    got = recon.delta_rebuild(*args, width)
+    torch.cuda.synchronize()
+    assert recon.delta_rebuild.launches == before + (pos.shape[0] > 0)
+    want = recon.delta_rebuild_plain(
+        *args, base.shape[0] if width is None else width)
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [None, 208, 211, 256])
+def test_gpu_rebuild_named_odd_rows(cuda_device, width):
+    names, pos, val, base, want = torch_cases.named_delta_rows()
+    got = _rebuild_on_card(cuda_device, pos, val, base, width)
+    for name, b in names.items():
+        np.testing.assert_array_equal(got[b, :200], want[b], err_msg=name)
+
+
+# B, E, L, width, positions, ascending, bytes the base is shifted by
+REBUILD_CASES = [
+    (64, 128, 900, None, np.uint16, True, 0),     # rows at 4 store phases
+    (64, 128, 901, None, np.int32, True, 0),      # rows at all 16 phases
+    (64, 128, 901, 915, np.uint16, True, 3),      # base not 16-byte aligned
+    (700, 128, 2999, 3072, np.uint16, True, 0),   # more rows than CTAs
+    (700, 256, 2999, 3001, np.uint16, False, 0),  # shuffled slots
+    (40, 4096, 5003, 5120, np.uint16, True, 0),   # the largest bucket
+    (40, 4096, 5003, None, np.int32, False, 5),
+    (9, 16, 70000, 70016, np.int32, True, 0),     # positions past uint16
+    (3, 4096, 29903, recon.MAX_WIDTH, np.uint16, True, 0),
+    (1, 1, 1, None, np.uint16, True, 0),
+    (5, 2, 17, 33, np.int32, False, 1),
+    (0, 128, 900, 1024, np.uint16, True, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,E,L,width,pos_dtype,ascending,shift",
+                         REBUILD_CASES)
+def test_gpu_rebuild_random_markers(cuda_device, B, E, L, width, pos_dtype,
+                                    ascending, shift):
+    """Nested starts, early ends, open runs, codes inside runs, padding,
+    empty and marker-free rows; ragged widths put the rows at every
+    16-byte phase; any order of slots; twice, to the same bytes."""
+    pos, val, base = torch_cases.random_delta_batch(
+        B + E + L, max(B, 1), E, L, ascending=ascending,
+        pos_dtype=pos_dtype)
+    pos, val = pos[:B], val[:B]
+    a = _rebuild_on_card(cuda_device, pos, val, base, width, shift)
+    b = _rebuild_on_card(cuda_device, pos, val, base, width, shift)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 100, 529, 1500, 5000])
+def test_gpu_rebuild_any_grid(cuda_device, B):
+    """Fewer rows than the persistent grid has CTAs, one more than it
+    holds (528 on a 132-SM card), and several rounds of it."""
+    pos, val, base = torch_cases.random_delta_batch(77, B, 128, 2999)
+    _rebuild_on_card(cuda_device, pos, val, base, 3072)
+
+
+@pytest.mark.gpu
+def test_gpu_rebuild_refuses_what_shared_memory_cannot_hold(cuda_device):
+    z = lambda *s, dt=torch.uint8: torch.zeros(s, dtype=dt,
+                                               device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        recon.delta_rebuild(z(2, 4096, dt=torch.int32), z(2, 4096), z(100),
+                            recon.MAX_WIDTH + 32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("prune", [True, False])
 def test_gpu_nearest_matches_cpu(cuda_device, tmp_path, monkeypatch, prune):
@@ -354,6 +432,57 @@ def test_gpu_gotoh_matches_plain(cuda_device, n, lo, width, B):
            gk.gotoh_score_plain(*args, lo, width))
     assert (gk.gotoh_forward.launches, gk.gotoh_score.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+def _walks(tb, ref, q, t_end, lo, n, K):
+    return (gotoh.gotoh_traceback_events(tb, t_end, lo, n, K)
+            + gotoh.gotoh_traceback(tb, ref, q, t_end, lo, n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", torch_cases.GAP_CASES)
+def test_gpu_walks_retire_gap_runs(cuda_device, name):
+    """Both walks on the card against the same walks on the CPU, from
+    the kernel's traceback bytes (equal to the plain version's)."""
+    ref, arr, lens, lo, W = torch_cases.gap_case(name)
+    host_in = [torch.from_numpy(x) for x in (ref, arr, lens)]
+    card_in = [x.to(cuda_device) for x in host_in]
+    tb, _, t_end, _ = gk.gotoh_forward(*card_in, lo, W)
+    tb_h, _, t_end_h, _ = gk.gotoh_forward(*host_in, lo, W)
+    assert torch.equal(tb.cpu(), tb_h)
+    got = _walks(tb, *card_in[:2], t_end, lo, len(ref), gotoh.EV_CAP)
+    want = _walks(tb_h, *host_in[:2], t_end_h, lo, len(ref), gotoh.EV_CAP)
+    _equal([g.cpu() for g in got], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(4))
+def test_gpu_walks_on_arbitrary_traceback_bytes(cuda_device, seed):
+    rng = np.random.default_rng(seed)
+    n, B, lo, W = 40, 64, -9, 17
+    tb = rng.integers(0, 32, (n, B, W)).astype(np.uint8)
+    tb[(tb & 3) == 3] &= 0xFC
+    host_in = [torch.from_numpy(x) for x in (
+        tb, torch_cases.ACGT[rng.integers(0, 4, n)],
+        torch_cases.ACGT[rng.integers(0, 4, (B, n + 9))],
+        rng.integers(0, W, B).astype(np.int32))]
+    got = _walks(*[x.to(cuda_device) for x in host_in], lo, n, 8)
+    _equal([g.cpu() for g in got], _walks(*host_in, lo, n, 8))
+
+
+@pytest.mark.gpu
+def test_gpu_walks_read_the_host_rarely(cuda_device, monkeypatch):
+    rng = np.random.default_rng(12)
+    ref, arr, lens = _gotoh_inputs(rng, 2000, 64, cuda_device)
+    tb, _, t_end, _ = gk.gotoh_forward(ref, arr, lens, -64, 129)
+    want = _walks(tb, ref, arr, t_end, -64, 2000, 4)
+    for every in (1, 32):
+        monkeypatch.setattr(gotoh, "HOST_READ_EVERY", every)
+        before = dict(gotoh.walk_counts)
+        _equal(_walks(tb, ref, arr, t_end, -64, 2000, 4), want)
+        iters = gotoh.walk_counts["iterations"] - before["iterations"]
+        reads = gotoh.walk_counts["host_reads"] - before["host_reads"]
+        assert reads == iters // every + 2
 
 
 @pytest.mark.gpu

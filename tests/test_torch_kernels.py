@@ -17,6 +17,7 @@ from uvaia_tpu.ops import pallas_recon, pallas_score
 from uvaia_tpu.ops import scan as jscan
 from uvaia_tpu_torch.ops import host, recon, score_kernels as sk
 
+import torch_cases
 from test_scan import make_pack, random_alignment
 
 
@@ -237,6 +238,118 @@ def test_rebuild_int32_positions():
     b = recon.delta_rebuild(_t(pos.astype(np.int32)), _t(val), _t(base),
                             1024)
     assert torch.equal(a, b)
+
+
+def _rebuild_both(pos, val, base, width):
+    """The port's rebuild on the CPU (the plain version) and the JAX
+    package's reconstruct_delta on the same entries."""
+    got = recon.delta_rebuild(_t(pos), _t(val), _t(base), width)
+    assert torch.equal(got, recon.delta_rebuild_plain(
+        _t(pos), _t(val), _t(base), base.shape[0] if width is None
+        else width))
+    want = jscan.reconstruct_delta(jnp.asarray(base), jnp.asarray(pos),
+                                   jnp.asarray(val), width)
+    return got.numpy(), np.asarray(want)
+
+
+def test_rebuild_named_odd_rows():
+    """A code inside a run, two starts before one end, a run without an
+    end, an end before any start, adjacent runs, a marker-free row, an
+    empty row: the expected rows, from the port and the JAX package."""
+    names, pos, val, base, want = torch_cases.named_delta_rows()
+    for width in (None, 256):
+        got, jax_rows = _rebuild_both(pos, val, base, width)
+        L = base.shape[0]
+        for name, b in names.items():
+            np.testing.assert_array_equal(got[b, :L], want[b], err_msg=name)
+        np.testing.assert_array_equal(got, jax_rows)
+        assert not got[:, L:].any()
+
+
+@pytest.mark.parametrize("E,L,width,pos_dtype", [
+    (128, 900, None, np.uint16),         # a ragged width (900 = 16 * 56 + 4)
+    (128, 901, None, np.int32),
+    (256, 2000, 2048, np.uint16),
+    (4096, 5003, 5120, np.uint16),       # the largest delta bucket
+    (4096, 5003, None, np.int32),
+    (16, 70000, 70016, np.int32),        # positions past uint16
+])
+def test_rebuild_random_markers_match_jax(E, L, width, pos_dtype):
+    """Random codes and markers at random unique positions (nested
+    starts, early ends, open runs, codes inside runs, padding slots,
+    empty and marker-free rows), ordered as the encoder orders them."""
+    pos, val, base = torch_cases.random_delta_batch(
+        E + L, 16, E, L, pos_dtype=pos_dtype)
+    got, want = _rebuild_both(pos, val, base, width)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rebuild_takes_any_order_of_positions():
+    """Shuffled slots (padding between real entries, markers out of
+    order) give the rows of the same entries in ascending order."""
+    a = torch_cases.random_delta_batch(5, 12, 64, 700)
+    b = torch_cases.random_delta_batch(5, 12, 64, 700, ascending=False)
+    np.testing.assert_array_equal(a[2], b[2])
+    assert (np.sort(a[0], 1) == np.sort(b[0], 1)).all() and (a[0] != b[0]).any()
+    rows = [recon.delta_rebuild(*(_t(x) for x in args), 704)
+            for args in (a, b)]
+    assert torch.equal(*rows)
+
+
+def test_rebuild_of_the_store_s_and_the_encoder_s_entries(tmp_path):
+    """What the two producers emit is what the rebuild's fast path
+    expects: real entries first, ascending, then ascending padding at
+    pos >= L — from ops/host.delta_encode (native and Python encoder)
+    and from a sequence store's delta blocks; and the rows come back."""
+    from uvaia_tpu.io import store as jstore
+    from uvaia_tpu_torch.io import store as pstore
+
+    codes, ok, base, pos, val = _delta_batch(21)
+    rng = np.random.default_rng(3)
+    fa = tmp_path / "db.fa"
+    with open(fa, "w") as f:
+        for r, s in enumerate(random_alignment(rng, 40, 900)):
+            s = bytearray(s)
+            if r % 3 == 0:
+                a = int(rng.integers(0, 800))
+                n_run = min(int(rng.integers(10, 90)), len(s) - a)
+                s[a:a + n_run] = b"N" * n_run
+            f.write(f">s{r}\n{bytes(s).decode()}\n")
+    jstore.ingest([str(fa)], str(tmp_path / "db.store"), block=16)
+    st = pstore.Store(str(tmp_path / "db.store"))
+    batches = [(pos, val, base.shape[0])]
+    for bi in range(len(st.blocks)):
+        d = st.block_delta(bi)
+        if d is not None:
+            batches.append((np.asarray(d[0]), np.asarray(d[1]), st.n_sites))
+    assert len(batches) > 1
+    for p, v, L in batches:
+        p = p.astype(np.int64)
+        real = p < L
+        assert (real[:, :-1] >= real[:, 1:]).all()       # real entries first
+        assert (np.diff(p, axis=1) > 0).all()            # all ascending
+    row0 = 0
+    for bi in range(len(st.blocks)):
+        d = st.block_delta(bi)
+        n = int(st.blocks[bi][1])
+        if d is not None:
+            got = recon.delta_rebuild(_t(np.asarray(d[0])),
+                                      _t(np.asarray(d[1])), _t(st.base))
+            np.testing.assert_array_equal(
+                got.numpy(), st.codes_rows(np.arange(row0, row0 + n)))
+        row0 += n
+
+
+def test_rebuild_empty_batch_and_width_limits():
+    base = torch.arange(50, dtype=torch.uint8) % 16
+    out = recon.delta_rebuild(torch.zeros((0, 8), dtype=torch.int32),
+                              torch.zeros((0, 8), dtype=torch.uint8), base, 64)
+    assert out.shape == (0, 64) and out.dtype == torch.uint8
+    # the kernel's shared-memory budget: the row plus 8 bytes an entry
+    assert recon.MAX_WIDTH % 16 == 0
+    assert (recon.MAX_WIDTH + 80 + 8 * recon.MAX_ENTRIES
+            <= recon.SHARED_BYTES)
+    assert recon.MAX_ENTRIES == host.DELTA_BUCKETS[-1]
 
 
 def test_wrappers_refuse_bad_inputs():

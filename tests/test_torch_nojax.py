@@ -1,10 +1,11 @@
 """The port's path needs no jax and nothing of the JAX package: in a
 process where importing jax, jaxlib or any `uvaia_tpu` module raises,
 the package imports, `python -m uvaia_tpu_torch nearest --device cpu
---keep_resolved` (in full mode and with --acgt) and `python -m
-uvaia_tpu_torch align --device cpu` run to exit 0, and chip_smoke
-imports; and no source file of the port (nor chip_smoke.py) holds an
-import statement of `uvaia_tpu`."""
+--keep_resolved` (in full mode and with --acgt), `python -m
+uvaia_tpu_torch align --device cpu` and the `ball` and `legacy`
+commands run to exit 0, and chip_smoke imports; and no source file of
+the port (nor chip_smoke.py, nor the port's scripts) holds an import
+statement of `uvaia_tpu`."""
 
 import ast
 import subprocess
@@ -45,7 +46,11 @@ for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
               "--keep_resolved", "--acgt", "--device", "cpu", "-o",
               "nojax_acgt"],
              ["align", "-r", "ref.fa", "q_al.fa", "--device", "cpu", "-o",
-              "nojax"]):
+              "nojax"],
+             ["ball", "-r", "db.fa", "q.fa", "-d", "20", "-p", "8",
+              "--device", "cpu", "-o", "nojax_ball"],
+             ["legacy", "-r", "db.fa", "q.fa", "-n", "2", "--device", "cpu",
+              "-o", "nojax_legacy"]):
     sys.argv = ["uvaia_tpu_torch", *argv]
     try:
         runpy.run_module("uvaia_tpu_torch", run_name="__main__")
@@ -86,10 +91,15 @@ def test_port_runs_without_jax(tmp_path):
     assert "Considering ACGT differences only" in r.stderr
     assert "Total: 3 read, 3 aligned" in r.stderr
     assert (tmp_path / "nojax.aln.xz").exists()
+    assert "Radius search: 3 queries, radius 20" in r.stderr
+    assert (tmp_path / "nojax_ball.aln.xz").exists()
+    assert r.stdout.count("\n") > 1 + 3 * 2          # the legacy table
+    assert (tmp_path / "nojax_legacy.fa.xz").exists()
 
 
 PORT_SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in
                       [*(ROOT / "uvaia_tpu_torch").rglob("*.py"),
+                       *(ROOT / "scripts").glob("*_torch.py"),
                        ROOT / "chip_smoke.py"])
 
 

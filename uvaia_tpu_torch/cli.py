@@ -1,11 +1,12 @@
 """Command line of the PyTorch port: ``python -m uvaia_tpu_torch
-nearest|align``.
+nearest|align|ball|legacy``.
 
 The flags are uvaia_tpu's own (the port's copies of the subcommand
-parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}``; ``nearest`` runs
-in full mode and with ``--acgt``.  Options whose paths are not ported
-yet (``--devices > 1``, ``--site-shards > 1``, ``--num-hosts > 1``)
-exit with an error instead of running elsewhere.
+parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}``;
+``nearest`` runs in full mode and with ``--acgt``.  Options whose paths
+are not ported yet (``--devices > 1``, ``--site-shards > 1``,
+``--num-hosts > 1``) exit with an error instead of running elsewhere;
+``cluster``, ``ingest`` and ``info`` are not ported yet.
 The port reads stores written by ``uvaia_tpu ingest``.  Exit codes are
 uvaia_tpu's: 2 for a file that cannot be opened or written, 130 on
 interrupt, and a quiet 0 when a reader closes the output pipe.
@@ -159,6 +160,71 @@ def _add_align(sub):
     return p
 
 
+def _add_ball(sub):
+    p = sub.add_parser(
+        "ball", help="keep references within a distance "
+        "radius of any query sequence",
+        epilog="Keeps every reference whose ACGT mismatch distance to "
+               "at least ONE query is <= --distance (ball.c:63: "
+               "default 5).  Distances use a staged consensus "
+               "decomposition (constant sites vs consensus first, "
+               "then gapped-constant, then per-query polymorphic — "
+               "fastaseq.c:660-696); redundant queries are always "
+               "removed first (ball.c:190).  Output is an xz "
+               "alignment of the kept references.",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-x", "--acgt", action="store_true")
+    p.add_argument("-k", "--keep_resolved", action="store_true")
+    p.add_argument("-d", "--distance", type=int, default=5)
+    p.add_argument("--trim", type=int, default=0)
+    p.add_argument("-a", "--query_ambiguity", type=float, default=0.5)
+    p.add_argument("-A", "--ref_ambiguity", type=float, default=0.5)
+    p.add_argument("-p", "--pool", type=int, default=4096)
+    p.add_argument("-r", "--reference", action="append", required=True)
+    p.add_argument("fasta")
+    p.add_argument("-o", "--output", default=None)
+    _add_codec(p)
+    return p
+
+
+def _add_legacy(sub):
+    p = sub.add_parser(
+        "legacy", help="in-memory searcher (pre-2022 uvaia behaviour)",
+        epilog="Loads the WHOLE reference DB + queries in memory and "
+               "prints, per query, a table of the best references "
+               "(valid_sites, ACGT_matches, prop_char_matches, "
+               "partial_matches) selected in three stages: by ACGT "
+               "matches, then by char-match proportion among the top "
+               "n/8, then by IUPAC-weighted partial matches among the "
+               "top n/16 (utils.c:87-161).  Partial matches weight "
+               "T vs W as 0.5 (utils.c:73); see --partial-rule for "
+               "the ambiguity-vs-ambiguity entries.  Use `nearest` "
+               "for databases too large for memory.",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-n", "--nbest", type=int, default=8)
+    p.add_argument("-m", "--nmax", type=int, default=0,
+                   help="max best refs when several optimal (default "
+                   "2 x nbest)")
+    p.add_argument("--trim", type=int, default=0)
+    p.add_argument("-a", "--query_ambiguity", type=float, default=0.5)
+    p.add_argument("-A", "--ref_ambiguity", type=float, default=0.5)
+    p.add_argument("-r", "--reference", required=True)
+    p.add_argument("fasta")
+    p.add_argument("-o", "--output", default=None)
+    p.add_argument("-t", "--nthreads", type=int, default=None,
+                   help="accepted for compatibility (uvaia.c:43; "
+                   "device-parallel here)")
+    p.add_argument("--partial-rule", default="product",
+                   choices=["product", "jaccard", "max"],
+                   help="ambiguity-vs-ambiguity entries of the "
+                        "weighted-partial table (biomcmc-lib's exact "
+                        "table is unrecoverable; all candidates agree "
+                        "on the documented pins incl. T vs W = 0.5 — "
+                        "on the bundled data the choice moves only "
+                        "63/1000 queries' stage-3 extras)")
+    return p
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="uvaia_tpu_torch",
@@ -166,11 +232,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-v", "--version", action="version",
                     version=f"uvaia_tpu_torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for add in (_add_nearest, _add_align):
+    for add in (_add_nearest, _add_align, _add_ball, _add_legacy):
         add(sub).add_argument(
             "--device", default="cuda", choices=["cuda", "cpu"],
-            help="cuda (default): the hand-written kernels; cpu: their "
-                 "plain PyTorch versions")
+            help="cuda (default): the hand-written kernels and torch "
+                 "ops on the GPU; cpu: the plain PyTorch versions")
     return ap
 
 
@@ -206,6 +272,23 @@ def _dispatch(args) -> int:
             ambiguity=args.ambiguity, pool=args.pool, band=args.band,
             to_stdout=args.stdout, output=args.output, codec=args.codec,
             device=args.device))
+        return 0
+    if args.cmd == "ball":
+        from .engine.ball import BallConfig, run_ball
+        run_ball(args.reference, args.fasta, BallConfig(
+            distance=args.distance, trim=args.trim, acgt=args.acgt,
+            keep_resolved=args.keep_resolved,
+            query_ambiguity=args.query_ambiguity,
+            ref_ambiguity=args.ref_ambiguity, pool=args.pool,
+            output=args.output, codec=args.codec, device=args.device))
+        return 0
+    if args.cmd == "legacy":
+        from .engine.legacy import LegacyConfig, run_legacy
+        run_legacy(args.reference, args.fasta, LegacyConfig(
+            nbest=args.nbest, nmax=args.nmax, trim=args.trim,
+            ambiguity=args.query_ambiguity,
+            ref_ambiguity=args.ref_ambiguity, output=args.output,
+            partial_rule=args.partial_rule, device=args.device))
         return 0
     from .engine.nearest import NOT_PORTED, NearestConfig, run_nearest
     if args.num_hosts > 1:

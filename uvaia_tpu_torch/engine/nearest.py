@@ -30,6 +30,7 @@ from ..io.compress import open_write
 from ..io.fasta import WRITE_CODEC_SUFFIX, make_fasta_writer
 from ..ops import scan
 from ..ops.host import IDX_SENTINEL
+from ..ops.score_kernels import full_float32_matmuls
 from ..utils import checkpoint as ckpt_mod
 from ..utils.observe import Chronometer, maybe_profile
 from .query import QueryPack, build_query_pack, log
@@ -141,13 +142,13 @@ def run_nearest(ref_paths: list[str], query_path: str,
         return _run_nearest(ref_paths, query_path, cfg)
 
 
+# prune_step's site product runs as a float32 matmul, exact only in
+# full float32 precision (score_kernels.exact_counts)
+@full_float32_matmuls()
 def _run_nearest(ref_paths: list[str], query_path: str,
                  cfg: NearestConfig) -> NearestResult:
     check_ported(cfg)
     dev = resolve_device(cfg.device)
-    # prune_step's site product runs as a float32 matmul, exact only in
-    # full float32 precision (score_kernels.exact_counts)
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg.clamp()
     chrono = Chronometer()
     t0 = time.time()
@@ -165,12 +166,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             "(excluding only gaps and Ns).")
 
     def up(x: np.ndarray) -> torch.Tensor:
-        """Host array -> tensor on the run's device."""
-        if x.dtype == np.uint32:      # Python-encoder positions, L >= 2**16
-            x = x.astype(np.int32)
-        if not x.flags.writeable:     # store payloads are mmap views
-            x = x.copy()
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return scan.upload(x, dev)
 
     # persistent-store inputs (io/store.py): batches stream
     # straight from mmap; the store's delta base replaces the query

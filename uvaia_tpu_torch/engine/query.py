@@ -227,10 +227,12 @@ def exclude_redundant(pack: QueryPack, keep_more_resolved: bool) -> int:
 
 def build_query_pack(path: str, trim: int = 0, acgt: bool = False,
                      ambiguity: float = 0.5,
-                     keep_resolved: bool | None = None) -> QueryPack:
-    """Load + preprocess queries, mirroring nearest.c:202-224 (the same
-    steps, log lines and order as uvaia_tpu.engine.query.build_query_pack;
-    the redundancy removal is :func:`exclude_redundant`)."""
+                     keep_resolved: bool | None = None,
+                     always_exclude_redundant: bool = False) -> QueryPack:
+    """Load + preprocess queries, mirroring nearest.c:202-224 /
+    ball.c:173-194 (the same steps, log lines and order as
+    uvaia_tpu.engine.query.build_query_pack; the redundancy removal is
+    :func:`exclude_redundant`, which `ball` always runs)."""
     recs = read_fasta_all(path)
     names = [r.name for r in recs]
     seqs = [r.seq for r in recs]
@@ -246,7 +248,7 @@ def build_query_pack(path: str, trim: int = 0, acgt: bool = False,
     pack = QueryPack(names=names, codes=codes, acgt=acgt, trim=trim)
     pack.create_indices()
     pack.reorder_by_resolution()
-    if keep_resolved:
+    if always_exclude_redundant or keep_resolved:
         removed = exclude_redundant(pack, bool(keep_resolved))
         log(f"Updated query database composed of {pack.n_query} valid "
             f"sequences, after removing {removed} redundant sequences.")

@@ -151,6 +151,11 @@ class Store:
 
     # -- names ----------------------------------------------------------
 
+    def name(self, r: int) -> str:
+        o = self.name_offsets
+        return self._names_blob[o[r]:o[r + 1]].decode("utf-8",
+                                                      errors="replace")
+
     def names_range(self, r0: int, n: int) -> list[str]:
         o = self.name_offsets
         blob = self._names_blob

@@ -10,9 +10,13 @@ The counterpart of ``uvaia_tpu/ops/gotoh.py``.  Two halves:
   and the group aligners around the forward DP of
   :mod:`.gotoh_kernels`.  These were XLA ops in the JAX package, not
   Pallas kernels: ``lax.while_loop`` is a Python ``while`` that reads
-  ``any(active)`` on the host each iteration, a dropping scatter
-  (``.at[].set(mode="drop")``) writes into a spill column that is
-  sliced off, and clipped gathers use clamped indices.
+  ``any(active)`` on the host every few iterations (and, on a CUDA
+  device, replays one captured iteration from a CUDA graph), a dropping
+  scatter (``.at[].set(mode="drop")``) writes into a spill column that
+  is sliced off, and clipped gathers use clamped indices.  The walks
+  visit the cells of the JAX package's walks but retire whole runs of
+  them an iteration (M, X and Y runs by a line probe, the leading
+  insertion and column 0 in closed form); every output is equal.
 
 Cost model (minimisation): match 0, mismatch 4, gap of length g costs
 6 + 2g.  Characters are raw ASCII bytes ('N' vs 'A' is a mismatch).
@@ -129,9 +133,168 @@ def unpack_meta(meta: np.ndarray, E: int):
 # device half (torch ops; index arithmetic in int64, results as in JAX)
 
 
+# The walks' loop condition is read on the host once every
+# HOST_READ_EVERY iterations: an iteration on a batch with no active
+# row changes nothing (every update is masked by `active`, every
+# scatter of an idle row lands in a spill column).
+HOST_READ_EVERY = 8
+# cells of a run (M, X or Y) fetched and retired in one iteration: the
+# events walk skips whole all-M blocks besides; the dense walk writes
+# every M cell, so its probe alone sets its iteration count
+PROBE = 128
+DENSE_PROBE = 256
+# totals over every walk since import: loop iterations and host reads
+walk_counts = {"iterations": 0, "host_reads": 0}
+# one memory pool for the graphs, one after another; the allocator keeps
+# a pool only while a graph uses it, so the newest graph is held until
+# the next one is captured
+_graph_pool = None
+_last_graph = None
+_graph_streams = {}       # device index -> the capture stream
+
+
 def _any_active(i: torch.Tensor, t: torch.Tensor, lo: int) -> bool:
     """The while-loop condition, read on the host."""
+    walk_counts["host_reads"] += 1
     return bool(((i > 0) | ((i + t + lo) > 0)).any())
+
+
+def _walk(body, carry, lo: int, max_iters: int):
+    """``while k < max_iters and any(active): carry = body(carry)`` with
+    the condition read every HOST_READ_EVERY iterations; carry[0] and
+    carry[1] are the row and slot of every walker.
+
+    On a CUDA device one iteration (~100 small launches, which the host
+    sends more slowly than the card runs them) is captured once in a
+    CUDA graph that updates the carry in place and is replayed; on the
+    CPU the body runs as it is."""
+    step = None
+    k = 0
+    while k < max_iters and _any_active(carry[0], carry[1], lo):
+        if step is None and carry[0].is_cuda:
+            step = _capture_step(body, carry)
+        for _ in range(min(HOST_READ_EVERY, max_iters - k)):
+            if step is None:
+                carry = body(carry)
+            else:
+                step.replay()
+            k += 1
+    walk_counts["iterations"] += k
+    return carry
+
+
+def _capture_step(body, carry):
+    """One iteration of `body` as a CUDA graph writing its results back
+    into the carry's own tensors, which the next replay reads."""
+    global _graph_pool, _last_graph
+    if _graph_pool is None:
+        _graph_pool = torch.cuda.graph_pool_handle()
+    dev = carry[0].device
+    side = _graph_streams.get(dev.index)
+    if side is None:
+        side = _graph_streams[dev.index] = torch.cuda.Stream(dev)
+    cur = torch.cuda.current_stream(dev)
+    side.wait_stream(cur)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=_graph_pool)
+        try:
+            for old, new in zip(carry, body(carry), strict=True):
+                if new is not old:
+                    old.copy_(new)
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    _last_graph = graph
+    return graph
+
+
+class _Walker:
+    """What both walks share: the move kinds of a state, a line probe
+    of `probe` cells along a run's direction and the length of the run.
+
+    A state (i, t) with j = i + t + lo sits on tb byte tb[i-1, b, t]
+    (`cur`).  Its kind: leading insertions (i == 0) and leading
+    deletions (j == 0) are closed-form runs to the origin; elsewhere
+    mat 0 / 1 / 2 is an M / X / Y move.  An M run keeps t and descends
+    the rows while the next byte's source is M; an X run descends the
+    rows at rising t while bit 2 (x_ext) of the byte it leaves is set;
+    a Y run stays in its row at falling t while bit 3 (y_ext) is set.
+    All reads clamp row and slot, as the single-step walk's did.
+    """
+
+    def __init__(self, tb: torch.Tensor, lo: int, n: int, probe: int):
+        _, self.B, self.W = tb.shape
+        self.lo, self.n = lo, n
+        self.tb_flat = tb.reshape(-1)
+        self.bidx = torch.arange(self.B, device=tb.device)
+        self.base = self.bidx * self.W
+        self.karr = torch.arange(probe, device=tb.device)
+
+    def read(self, i, t):
+        """The tb byte of state (i, t)."""
+        return self.tb_flat[
+            torch.clamp(i - 1, 0, self.n - 1) * (self.B * self.W)
+            + self.base + torch.clamp(t, 0, self.W - 1)].long()
+
+    def classify(self, i, t, mat):
+        j = i + t + self.lo
+        active = (i > 0) | (j > 0)
+        lead_y = active & (i == 0)                 # leading insertions
+        col0_x = active & (i > 0) & (j == 0)       # leading deletions
+        inner = (i > 0) & (j > 0)
+        return (j, active, lead_y, col0_x, inner & (mat == 0),
+                inner & (mat == 1), inner & (mat == 2))
+
+    def probe(self, i, t, di, dt):
+        """(B, probe) bytes of states (i - k di, t + k dt)."""
+        k = self.karr[None, :]
+        rows = torch.clamp(i[:, None] - 1 - k * di[:, None], 0, self.n - 1)
+        slots = torch.clamp(t[:, None] + k * dt[:, None], 0, self.W - 1)
+        return self.tb_flat[rows * (self.B * self.W) + self.base[:, None]
+                            + slots].long()
+
+    def run_length(self, v, i, j, is_m, is_x, is_y, m_by_byte=False):
+        """Cells of the run that starts at the probed state, 1..probe
+        (0 for a row that is none of M, X, Y).  `m_by_byte`: an M run's
+        first cell counts only if its own byte's source is M, as the
+        events walk of the JAX package probes it (the carried kind and
+        the byte agree wherever a forward pass wrote the byte)."""
+        prev = v[:, :-1]
+        cont = torch.where(
+            is_m[:, None], (v[:, 1:] & 3) == 0,
+            torch.where(is_x[:, None], ((prev >> 2) & 1) == 1,
+                        ((prev >> 3) & 1) == 1))
+        lim = torch.where(is_m, torch.minimum(i, j),
+                          torch.where(is_x, i, j))
+        first = (is_m | is_x | is_y)[:, None]
+        head = first
+        if m_by_byte:
+            head = first & (~is_m[:, None] | ((v[:, :1] & 3) == 0))
+        okk = (torch.cat([head, cont], dim=1) & first
+               & (self.karr[None, :] < lim[:, None]))
+        return torch.cumprod(okk.long(), dim=1).sum(dim=1)
+
+    def edge_of_run(self, i, t, active, dt, r):
+        """True where a run of r states from (i, t) along dt visits a
+        border slot (t <= 0 or t >= W - 1) at a row i > 0."""
+        span = dt * torch.clamp(r - 1, min=0)
+        return (active & (i > 0)
+                & ((t + torch.clamp(span, max=0) <= 0)
+                   | (t + torch.clamp(span, min=0) >= self.W - 1)))
+
+    @staticmethod
+    def next_mat(is_m, is_x, is_y, last, nxt, mat):
+        """The move kind after a run: `last` is the byte of the run's
+        last state, `nxt` the byte of the state it lands on.  A Y *open*
+        came from G = min(M, X), whose argmin is bit 4."""
+        return torch.where(
+            is_m, nxt & 3,
+            torch.where(
+                is_x, torch.where(((last >> 2) & 1) == 1, 1, nxt & 3),
+                torch.where(
+                    is_y, torch.where(((last >> 3) & 1) == 1, 2,
+                                      (nxt >> 4) & 1), mat)))
 
 
 def gotoh_traceback(tb: torch.Tensor, ref: torch.Tensor, q: torch.Tensor,
@@ -143,127 +306,88 @@ def gotoh_traceback(tb: torch.Tensor, ref: torch.Tensor, q: torch.Tensor,
     walk_cost (B,) int32 — the walked path's cost, for validation
     against the forward score).
 
-    A diagonal step keeps slot t and decrements the row, so a run of M
-    cells lies along tb[i-1 .. i-r, b, t]: each iteration fetches R
-    bytes of that line and retires the leading M-run (up to R-1 cells)
-    at once; rows whose move is a gap or boundary take one step.
+    Each iteration retires one run of every row: up to DENSE_PROBE - 1 cells
+    of an M, X or Y run found by a line probe, or the whole of a leading
+    insertion (i == 0) or leading deletion (j == 0).  The cells, flags
+    and costs are those the cell-by-cell walk of the JAX package
+    visits.  Deleted sites keep the '-' the rows are filled with.
     """
     B, m_pad = q.shape
     W = tb.shape[2]
     dev = tb.device
-    bidx = torch.arange(B, device=dev)
     GAP = ord("-")
     refl = ref.long()
     ql = q.long()
-    tb_flat = tb.reshape(-1)
-    R = 32
-    karr = torch.arange(R, device=dev)
+    wk = _Walker(tb, lo, n, DENSE_PROBE)
+    bidx, karr = wk.bidx, wk.karr
+    R = DENSE_PROBE
+    # column 0 (j = 0) is one closed-form X run: cell (i', 0) sits in
+    # slot -lo - i' (clamped as every read is) and costs an extension,
+    # an open where its bit 2 is clear and, as the cell-by-cell walk
+    # charges it, a Y step as well where it was entered as Y (source 2
+    # under a cell that did not extend X; no forward emits that)
+    rows = torch.arange(n, device=dev)
+    c0 = tb[rows, :, torch.clamp(-lo - 1 - rows, 0, W - 1)].long()  # (n, B)
+    as_y = GAP_EXT + GAP_OPEN * (1 - ((c0 >> 3) & 1))
+    col0_y = torch.zeros_like(c0)
+    col0_y[:-1] = torch.where(
+        (((c0[1:] >> 2) & 1) == 0) & ((c0[:-1] & 3) == 2), as_y[:-1], 0)
+    col0_cost = torch.cumsum(
+        GAP_EXT + GAP_OPEN * (1 - ((c0 >> 2) & 1)) + col0_y, dim=0)
 
-    def read_src(i, t):
-        return tb[torch.clamp(i - 1, 0, n - 1), bidx,
-                  torch.clamp(t, 0, W - 1)].long()
-
-    def step(carry, enable):
+    def body(carry):
         i, t, mat, cur, out, edge, cost = carry
-        j = i + t + lo
-        active = ((i > 0) | (j > 0)) & enable
-        edge = edge | (active & (i > 0) & ((t <= 0) | (t >= W - 1)))
-        lead_y = active & (i == 0)                 # leading insertions
-        col0_x = active & (i > 0) & (j == 0)       # leading deletions
-        is_m = active & ~lead_y & ~col0_x & (mat == 0)
-        is_x = (active & ~lead_y & ~col0_x & (mat == 1)) | col0_x
-        is_y = (active & ~lead_y & (mat == 2)) | lead_y
-        x_ext = ((cur >> 2) & 1).bool()
-        y_ext = ((cur >> 3) & 1).bool()
-
-        qc = ql[bidx, torch.clamp(j - 1, 0, m_pad - 1)]
-        write = is_m | is_x
-        pos = torch.where(write, i - 1, n)         # n: the spill column
-        out[bidx, pos] = torch.where(is_m, qc, GAP).to(torch.uint8)
-
-        ni = torch.where(is_m | is_x, i - 1, i)
-        nt = torch.where(is_x, t + 1, torch.where(is_y, t - 1, t))
-        # a Y-gap *open* came from G = min(M, X), whose argmin is bit 4
-        tgt = read_src(ni, nt)
-        nxt = tgt & 3
-        nxt_g = (tgt >> 4) & 1
-        n_mat = torch.where(
-            is_m, nxt,
-            torch.where(is_x, torch.where(x_ext, 1, nxt),
-                        torch.where(is_y, torch.where(y_ext, 2, nxt_g),
-                                    mat)))
-        n_mat = torch.where(active, n_mat, mat)
-        n_cur = torch.where(active, tgt, cur)
-        ni = torch.where(active, ni, i)
-        nt = torch.where(active, nt, t)
-
-        refc = refl[torch.clamp(i - 1, 0, n - 1)]
-        inc = torch.where(is_m, torch.where(qc == refc, 0, MISMATCH), 0)
-        inc = inc + torch.where(
-            is_x, GAP_EXT + torch.where(x_ext, 0, GAP_OPEN), 0)
-        inc = inc + torch.where(
-            is_y & ~lead_y, GAP_EXT + torch.where(y_ext, 0, GAP_OPEN), 0)
-        nj = ni + nt + lo
-        inc = inc + torch.where((i > 0) & (ni == 0) & (nj > 0),
-                                GAP_OPEN + GAP_EXT * nj, 0)
-        cost = cost + torch.where(active, inc, 0)
-        return ni, nt, n_mat, n_cur, out, edge, cost
-
-    def mega(carry):
-        i, t, mat, cur, out, edge, cost = carry
-        j = i + t + lo
-        active = (i > 0) | (j > 0)
-        can_run = active & (mat == 0) & (i > 0) & (j > 0)
-
-        i1, t1, mat1, cur1, out, edge, cost = step(
-            (i, t, mat, cur, out, edge, cost), ~can_run)
-
-        # M-run fast path: v[k] = tb byte at row i-1-k, slot t
-        rowidx = i[:, None] - 1 - karr[None, :]             # (B, R)
-        flat = (torch.clamp(rowidx, 0, n - 1) * (B * W)
-                + (bidx * W + torch.clamp(t, 0, W - 1))[:, None])
-        v = tb_flat[flat].long()
-        ok_next = torch.cat([can_run[:, None], (v[:, 1:] & 3) == 0], dim=1)
-        okk = (ok_next & can_run[:, None] & (rowidx >= 0)
-               & ((j[:, None] - 1 - karr[None, :]) >= 0))
-        runlen = torch.clamp(torch.cumprod(okk.long(), dim=1).sum(dim=1),
+        j, active, lead_y, col0_x, is_m, is_x, is_y = wk.classify(i, t, mat)
+        di = (is_m | is_x).long()
+        dt = is_x.long() - is_y.long()
+        v = wk.probe(i, t, di, dt)
+        runlen = torch.clamp(wk.run_length(v, i, j, is_m, is_x, is_y),
                              max=R - 1)
         kmask = karr[None, :] < runlen[:, None]
+
+        rowidx = i[:, None] - 1 - karr[None, :]
         qch = ql[bidx[:, None],
                  torch.clamp(j[:, None] - 1 - karr[None, :], 0, m_pad - 1)]
         refch = refl[torch.clamp(rowidx, 0, n - 1)]
-        outpos = torch.where(kmask, rowidx, n)              # n: spill
-        out[bidx[:, None], outpos] = qch.to(torch.uint8)
-        run_cost = torch.where(kmask & (qch != refch), MISMATCH,
-                               0).sum(dim=1)
-        i2 = i - runlen
-        j2 = j - runlen
-        run_cost = run_cost + torch.where(can_run & (i2 == 0) & (j2 > 0),
-                                          GAP_OPEN + GAP_EXT * j2, 0)
-        cur2 = torch.gather(v, 1, runlen[:, None])[:, 0]
-        edge = edge | (can_run & ((t <= 0) | (t >= W - 1)))
-        ni = torch.where(can_run, i2, i1)
-        nt = torch.where(can_run, t, t1)
-        nmat = torch.where(can_run, cur2 & 3, mat1)
-        ncur = torch.where(can_run, cur2, cur1)
-        ncost = cost + torch.where(can_run, run_cost, 0)
-        return ni, nt, nmat, ncur, out, edge, ncost
+        m_cells = kmask & is_m[:, None]
+        out[bidx[:, None], torch.where(m_cells, rowidx, n)] = \
+            qch.to(torch.uint8)                         # n: the spill column
+        ext = torch.where(is_x[:, None], (v >> 2) & 1, (v >> 3) & 1)
+        run_cost = torch.where(
+            is_m, MISMATCH * (m_cells & (qch != refch)).sum(dim=1),
+            GAP_EXT * runlen
+            + GAP_OPEN * (kmask & (ext == 0)).sum(dim=1))
+        top = torch.clamp(i - 1, 0, n - 1)
+        run_cost = torch.where(
+            col0_x, col0_cost[top, bidx] - col0_y[top, bidx]
+            + torch.where(mat == 2, as_y[top, bidx], 0), run_cost)
+
+        r = torch.where(lead_y, j, torch.where(col0_x, i, runlen))
+        di = di + col0_x.long()
+        dt = dt + col0_x.long() - lead_y.long()
+        ni = i - r * di
+        nt = t + r * dt
+        nj = ni + nt + lo
+        run_cost = run_cost + torch.where(
+            (i > 0) & (ni == 0) & (nj > 0), GAP_OPEN + GAP_EXT * nj, 0)
+        edge = edge | wk.edge_of_run(i, t, active, dt, r)
+        moved = is_m | is_x | is_y
+        last = torch.gather(v, 1, torch.clamp(runlen - 1, min=0)[:, None])
+        nxt = torch.gather(v, 1, runlen[:, None])[:, 0]
+        nmat = wk.next_mat(is_m, is_x, is_y, last[:, 0], nxt, mat)
+        return (ni, nt, nmat, torch.where(moved, nxt, cur), out, edge,
+                cost + run_cost)
 
     i = torch.full((B,), n, dtype=torch.long, device=dev)
-    t = t_end.long()
-    cur = read_src(i, t)
+    t = t_end.to(torch.long, copy=True)   # the walks update it in place
+    cur = wk.read(i, t)
     carry = (i, t, cur & 3, cur,
              torch.full((B, n + 1), GAP, dtype=torch.uint8, device=dev),
              torch.zeros(B, dtype=torch.bool, device=dev),
              torch.zeros(B, dtype=torch.long, device=dev))
     # every iteration retires >= 1 path step per active row, so the
     # cap only guards against a corrupt traceback (done=False rows)
-    max_iters = n + m_pad + 2
-    k = 0
-    while k < max_iters and _any_active(carry[0], carry[1], lo):
-        carry = mega(carry)
-        k += 1
-    i_f, t_f, _, _, out, edge, cost = carry
+    i_f, t_f, _, _, out, edge, cost = _walk(body, carry, lo, n + m_pad + 2)
     done = (i_f == 0) & ((i_f + t_f + lo) == 0)
     return out[:, :n], done, edge, cost.to(torch.int32)
 
@@ -288,7 +412,10 @@ def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
     changes; the host rebuilds the row from the query bytes it already
     holds (decode_events).  Pure-diagonal stretches are skipped with the
     hierarchical all-M flags (one 256-row or 4096-row block per
-    iteration) and a 32-byte line probe for partial blocks.
+    iteration) and a PROBE-byte line probe for partial blocks; a gap run
+    retires PROBE cells an iteration, a leading insertion or deletion
+    all of its cells at once.  A run retired whole records its one
+    checkpoint where it starts, as the cell-by-cell walk does.
 
     Returns (ev_i (B,K) int32, ev_t (B,K) int32, cnt (B,) int32,
     done (B,) bool, edge (B,) bool, overflow (B,) bool).  Rows with
@@ -296,38 +423,15 @@ def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
     """
     _, B, W = tb.shape
     dev = tb.device
-    bidx = torch.arange(B, device=dev)
     BL1, BL2, allm1, allm2 = _all_m_blocks(tb, n)
     n1, n2 = allm1.shape[0], allm2.shape[0]
-    tb_flat = tb.reshape(-1)
-    R = 32
-    karr = torch.arange(R, device=dev)
+    wk = _Walker(tb, lo, n, PROBE)
+    bidx = wk.bidx
 
-    i = torch.full((B,), n, dtype=torch.long, device=dev)
-    t = t_end.long()
-    cur = tb[torch.clamp(i - 1, 0, n - 1), bidx,
-             torch.clamp(t, 0, W - 1)].long()
-    mat = cur & 3
-    kprev = torch.full((B,), -1, dtype=torch.long, device=dev)
-    cnt = torch.zeros(B, dtype=torch.long, device=dev)
-    # column K is the spill column of the dropping scatter
-    ev_i = torch.zeros((B, K + 1), dtype=torch.long, device=dev)
-    ev_t = torch.zeros((B, K + 1), dtype=torch.long, device=dev)
-    edge = torch.zeros(B, dtype=torch.bool, device=dev)
-    ovf = torch.zeros(B, dtype=torch.bool, device=dev)
-
-    max_iters = 2 * n + 2 * W + 8    # all-single-step worst case
-    k = 0
-    while k < max_iters and _any_active(i, t, lo):
-        k += 1
-        j = i + t + lo
-        active = (i > 0) | (j > 0)
-        lead_y = active & (i == 0)
-        col0_x = active & (i > 0) & (j == 0)
-        is_m = active & ~lead_y & ~col0_x & (mat == 0)
-        is_x = (active & ~lead_y & ~col0_x & (mat == 1)) | col0_x
-        is_y = (active & ~lead_y & (mat == 2)) | lead_y
-        kind = torch.where(is_m, 0, torch.where(is_x, 1, 2))
+    def body(carry):
+        i, t, mat, kprev, cnt, ev_i, ev_t, edge, ovf = carry
+        j, active, lead_y, col0_x, is_m, is_x, is_y = wk.classify(i, t, mat)
+        kind = torch.where(is_m, 0, torch.where(is_x | col0_x, 1, 2))
 
         rec = active & (kprev >= 0) & (kind != kprev)
         pos = torch.where(rec & (cnt < K), cnt, K)
@@ -336,9 +440,13 @@ def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
         ovf = ovf | (rec & (cnt >= K))
         cnt = cnt + rec.long()
         kprev = torch.where(active, kind, kprev)
-        edge = edge | (active & (i > 0) & ((t <= 0) | (t >= W - 1)))
 
-        # ---- M-skip path: retire the longest provable diagonal run
+        di = (is_m | is_x).long()
+        dt = is_x.long() - is_y.long()
+        v = wk.probe(i, t, di, dt)
+        runlen = wk.run_length(v, i, j, is_m, is_x, is_y, m_by_byte=True)
+
+        # ---- M: the longest provable diagonal run, by blocks or probe
         tcl = torch.clamp(t, 0, W - 1)
         r_top = i - 1                          # topmost tb row consumed
         blk1 = torch.clamp(torch.div(r_top, BL1, rounding_mode="floor"),
@@ -347,37 +455,32 @@ def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
                            0, n2 - 1)
         cand1 = torch.where(allm1[blk1, bidx, tcl], blk1 * BL1, i)
         cand2 = torch.where(allm2[blk2, bidx, tcl], blk2 * BL2, i)
-        rowidx = r_top[:, None] - karr[None, :]
-        flat = (torch.clamp(rowidx, 0, n - 1) * (B * W)
-                + (bidx * W + tcl)[:, None])
-        v = tb_flat[flat]
-        okk = (rowidx >= 0) & ((v & 3) == 0)
-        runlen = torch.cumprod(okk.long(), dim=1).sum(dim=1)
-        cand_r = i - runlen
-        i2 = torch.minimum(torch.minimum(cand1, cand2), cand_r)
+        i2 = torch.minimum(torch.minimum(cand1, cand2), i - runlen)
         i2 = torch.maximum(i2, torch.clamp(-t - lo, min=0))  # keep j2 >= 0
-        cur2 = tb_flat[torch.clamp(i2 - 1, 0, n - 1) * (B * W)
-                       + bidx * W + tcl].long()
-        mat2 = cur2 & 3
 
-        # ---- classic single step for gap / boundary rows
-        x_ext = ((cur >> 2) & 1).bool()
-        y_ext = ((cur >> 3) & 1).bool()
-        ni_c = torch.where(is_x, i - 1, i)
-        nt_c = torch.where(is_x, t + 1, torch.where(is_y, t - 1, t))
-        tgt = tb[torch.clamp(ni_c - 1, 0, n - 1), bidx,
-                 torch.clamp(nt_c, 0, W - 1)].long()
-        nxt = tgt & 3
-        nxt_g = (tgt >> 4) & 1
-        mat_c = torch.where(is_x, torch.where(x_ext, 1, nxt),
-                            torch.where(is_y, torch.where(y_ext, 2, nxt_g),
-                                        mat))
+        r = torch.where(lead_y, j, torch.where(col0_x, i, runlen))
+        di = di + col0_x.long()
+        dt = dt + col0_x.long() - lead_y.long()
+        edge = edge | wk.edge_of_run(i, t, active, dt, r)
+        ni = torch.where(is_m, i2, i - r * di)
+        nt = t + r * dt
+        last = torch.gather(v, 1, torch.clamp(runlen - 1, min=0)[:, None])
+        nmat = wk.next_mat(is_m, is_x, is_y, last[:, 0], wk.read(ni, nt),
+                           mat)
+        return ni, nt, nmat, kprev, cnt, ev_i, ev_t, edge, ovf
 
-        i, t, mat, cur = (
-            torch.where(is_m, i2, torch.where(active, ni_c, i)),
-            torch.where(is_m, t, torch.where(active, nt_c, t)),
-            torch.where(is_m, mat2, torch.where(active, mat_c, mat)),
-            torch.where(is_m, cur2, torch.where(active, tgt, cur)))
+    i = torch.full((B,), n, dtype=torch.long, device=dev)
+    t = t_end.to(torch.long, copy=True)   # the walks update it in place
+    zeros = lambda *shape, dt=torch.long: torch.zeros(shape, dtype=dt,
+                                                      device=dev)
+    # column K of ev_i / ev_t is the spill column of the dropping scatter
+    carry = (i, t, wk.read(i, t) & 3,
+             torch.full((B,), -1, dtype=torch.long, device=dev), zeros(B),
+             zeros(B, K + 1), zeros(B, K + 1), zeros(B, dt=torch.bool),
+             zeros(B, dt=torch.bool))
+    # the cap only guards against a corrupt traceback (done=False rows)
+    i, t, _, _, cnt, ev_i, ev_t, edge, ovf = _walk(
+        body, carry, lo, 2 * n + 2 * W + 8)
     done = (i == 0) & ((i + t + lo) == 0)
     i32 = torch.int32
     return (ev_i[:, :K].to(i32), ev_t[:, :K].to(i32), cnt.to(i32), done,

@@ -13,8 +13,13 @@ import torch
 
 from . import _build
 
-# the largest row the kernel holds in shared memory (H100: 227 KB)
-MAX_WIDTH = 232448
+# shared memory a CTA of the H100 may use, and what the kernel asks of
+# it: the row (rounded up to 16 bytes, plus 16), 8 bytes an entry and
+# some scan scratch
+SHARED_BYTES = 232448
+MAX_ENTRIES = 4096            # ops/host.DELTA_BUCKETS[-1]
+# the widest row that fits beside MAX_ENTRIES entries
+MAX_WIDTH = SHARED_BYTES - 8 * MAX_ENTRIES - 96
 
 
 def unmask_runs(img: torch.Tensor) -> torch.Tensor:
@@ -53,7 +58,16 @@ def delta_rebuild(pos: torch.Tensor, val: torch.Tensor, base: torch.Tensor,
                   width: int | None = None) -> torch.Tensor:
     """Device-side inverse of ops/host.delta_encode: pos (B, E) uint16
     or int32, val (B, E) uint8, base (L,) uint8 -> (B, width) uint8
-    (width defaults to L; columns past L are zero)."""
+    (width defaults to L; columns past L are zero).
+
+    The contract, as the plain version has it: base holds codes 0-15
+    (ops/host.majority_code); a row's positions below L are unique;
+    entries with pos >= L are dropped.  The positions may come in any
+    order: the kernel is at its fastest on what ops/host.delta_encode
+    and the sequence store hold (real entries first, ascending, then
+    the padding).  A row with run markers in another order, which no
+    command produces, takes a prefix sum over its sites: a safety path
+    that keeps the kernel equal to the plain version on any input."""
     L = base.shape[0]
     w = L if width is None else int(width)
     if pos.shape != val.shape or pos.dim() != 2:
@@ -72,10 +86,12 @@ def delta_rebuild(pos: torch.Tensor, val: torch.Tensor, base: torch.Tensor,
         raise ValueError(f"width {w} is below the base length {L}")
     if not _build.use_kernel(pos):
         return delta_rebuild_plain(pos, val, base, w)
-    if w > MAX_WIDTH:
-        raise ValueError(f"width {w} exceeds the rebuild kernel's "
-                         f"shared-memory row ({MAX_WIDTH})")
     B, E = pos.shape
+    if (w + 15) // 16 * 16 + 80 + 8 * E > SHARED_BYTES:
+        raise ValueError(
+            f"width {w} with {E} entries a row exceeds the rebuild "
+            f"kernel's shared memory (width <= {MAX_WIDTH} at up to "
+            f"{MAX_ENTRIES} entries)")
     out = torch.empty((B, w), dtype=torch.uint8, device=pos.device)
     if B == 0:
         return out

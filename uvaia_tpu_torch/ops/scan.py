@@ -90,6 +90,16 @@ def _to_dev(x: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x)).to(device)
 
 
+def upload(x: np.ndarray, device) -> torch.Tensor:
+    """A streamed host array (codes, delta entries, flags) as a tensor on
+    `device`, without a copy where the array allows it."""
+    if x.dtype == np.uint32:      # Python-encoder positions, L >= 2**16
+        x = x.astype(np.int32)
+    if not x.flags.writeable:     # store payloads are mmap views
+        x = x.copy()
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
 def device_data_from_numpy(d: dict, device) -> QueryDeviceData:
     """The port's QueryDeviceData from the JAX package's fields as
     numpy arrays (``np.asarray`` of each data field of
@@ -281,6 +291,13 @@ def score_batch_planes_packed(qd: QueryDeviceData, packed: torch.Tensor):
             ref_amb = gather_packed_nibbles(packed, qd.amb_sites)
     planes = assemble_score_planes(qd, None, cons5, mats, ref_amb=ref_amb)
     return planes, _valid(qd, planes)
+
+
+def unpack_codes(packed: torch.Tensor, n_sites: int) -> torch.Tensor:
+    """Device-side inverse of host.pack_codes: (B, P) uint8 -> (B,
+    n_sites) 4-bit codes, the high nibble first."""
+    both = torch.stack([(packed >> 4) & 0xF, packed & 0xF], dim=-1)
+    return both.reshape(packed.shape[0], -1)[:, :n_sites]
 
 
 def reconstruct_delta(base: torch.Tensor, pos: torch.Tensor,

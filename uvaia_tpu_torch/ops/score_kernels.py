@@ -22,6 +22,8 @@ counts, so kernel and plain version agree exactly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from . import _build
@@ -29,6 +31,19 @@ from . import _build
 # ----------------------------------------------------------------------
 # plain versions (the CPU path, and the reference the kernels are held
 # against on the card)
+
+
+@contextlib.contextmanager
+def full_float32_matmuls():
+    """Turn TF32 matmuls off for the block (or the decorated function)
+    and put the process-wide flag back as it was: what the engines wrap
+    their exact float32 products in."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
 
 
 def exact_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,8 +55,8 @@ def exact_counts(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     products in torch wrap.  Refuses to run with TF32 matmuls enabled."""
     if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
-            "exact counts need full float32 matmuls: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False")
+            "exact counts need full float32 matmuls: run inside "
+            "score_kernels.full_float32_matmuls()")
     return torch.matmul(a.to(torch.float32),
                         b.to(torch.float32).T).to(torch.int32)
 
