@@ -46,12 +46,21 @@ Phases (any failure exits non-zero, without the final result line):
   9. `legacy` through its command line: those 2048 references x 64
      queries, the printed table and the score store equal under
      `--device cuda` and `--device cpu`, the counters of 64 x 8 pairs
-     equal to a numpy oracle.
+     equal to a numpy oracle;
+ 10. the store and `cluster`: `ingest` of phase 4's 16384 genomes with
+     the port (block 4096, the native digest), `info --verify --json`
+     exit 0 and ok, the store's rows 0-2047 and the far row equal to the
+     FASTA, `nearest` from the store (full mode, prune on) byte-equal to
+     phase 4's FASTA CSV; `cluster -d 38 -p 1024` at scale from the
+     FASTA and from the store, byte-equal, with more than 1024 medoids
+     (the store grows a tier) and rows that join; on the first 2048
+     genomes byte-equal under `--device cuda` and `--device cpu`; the
+     distance product (torch._int_mm) timed at its main-path shape
+     against its int8 bound.
 Phase 2 holds delta_rebuild at the main path's batch (E=128, markers on
 every row) and on synthetic entries at E = 1024 and 4096, with int32
-positions and at the ragged width w = L; each shape is also timed with
-the one-CTA-a-row kernel it replaced (`earlier_ms`) and inside a CUDA
-graph (`device_ms`: a call of ~0.1 ms is half host work).
+positions and at the ragged width w = L; each shape is also timed inside
+a CUDA graph (`device_ms`: a call of ~0.1 ms is half host work).
 Phase 2 also holds amb_corr at the Q=1000 pack (its own number of
 ambiguity columns, logged) and the two banded Gotoh kernels against
 their plain versions: B=64 at the first band level W=129 and B=4 at
@@ -63,8 +72,9 @@ reference bases (the plain version is a Python loop of ~0.5 ms a row).
 Each
 kernel's launch count comes from the path that runs it: the nearest
 kernels from phase 4 (full-mode ones from its full-mode pair, the
---acgt ones from its --acgt pair; delta_rebuild from phase 4 and phase
-8's `ball` run together), `gotoh_score` from phase 6,
+--acgt ones from its --acgt pair; delta_rebuild from phase 4, phase
+8's `ball` run and phase 10's three `cluster` runs on the card
+together), `gotoh_score` from phase 6,
 `gotoh_forward` from phase 7, every count set to 0 just before its
 runs.  No command runs `pair_counters` (nor, in the JAX package, the
 kernel it replaces): its count is its phase-2 launches.
@@ -220,7 +230,7 @@ def counter_bound(r, q_ops, planes: int, n_out: int, cons: bool) -> dict:
 # ----------------------------------------------------------------------
 # the library yardstick: one-hot feature planes through torch._int_mm
 # (int8 x int8 -> int32 on the tensor cores).  Operands are built before
-# the timed window; the port itself never calls _int_mm.
+# the timed window; the port calls _int_mm only for cluster's distances.
 
 AMB_CODES = [c for c in range(16) if bin(c).count("1") >= 2]
 
@@ -554,34 +564,6 @@ def synthetic_deltas(rng, B: int, E: int, L: int, pos_dtype=np.uint16):
     return pos.astype(pos_dtype), val
 
 
-def row_per_cta_rebuild():
-    """The one-CTA-a-row rebuild (scripts/recon_row_per_cta.cu, the
-    design csrc/recon.cu replaced), built here and bound with ctypes: a
-    callable (pos, val, base, width) -> rows, timed beside the kernel
-    in the same run.  The port never calls it."""
-    import ctypes
-    src = ROOT / "scripts" / "recon_row_per_cta.cu"
-    lib_path = _build.BUILD_DIR / "librecon_row_per_cta.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
-                    str(src)], check=True)
-    fn = ctypes.CDLL(str(lib_path)).uvt_delta_rebuild_row_per_cta
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P, I, P, P, I, I, I, I, P, P]
-    fn.restype = I
-
-    def rebuild(pos, val, base, width):
-        out = torch.empty((pos.shape[0], width), dtype=torch.uint8,
-                          device=pos.device)
-        _build.check(fn(pos.data_ptr(), pos.element_size(), val.data_ptr(),
-                        base.data_ptr(), *pos.shape, base.shape[0], width,
-                        out.data_ptr(), _build.stream_ptr(pos)),
-                     "row_per_cta_rebuild")
-        return out
-    return rebuild
-
-
 def rebuild_bound(pos, val, L: int, width: int) -> dict:
     """Entries and base read once, the rows written once."""
     return bound(pos.numel() * pos.element_size() + val.numel() + L
@@ -593,8 +575,7 @@ def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
     markers on every row), masked tails and an ok=False row, as phase 4
     feeds it; then on synthetic entries at E = 1024 and 4096, with int32
     positions and at the ragged width w = L (odd rows with markers, an
-    open and a nested run among them).  Every shape is also timed with
-    the one-CTA-a-row kernel this one replaced (`earlier_ms`)."""
+    open and a nested run among them)."""
     B, L = codes.shape
     ok = np.ones(B, dtype=bool)
     ok[B // 2] = False
@@ -610,26 +591,16 @@ def phase_rebuild(dev, codes: np.ndarray, qd, records: dict) -> None:
     want = np.where(ok[:, None], codes, base[None, :])
     if not np.array_equal(out[:, :L].cpu().numpy(), want):
         raise AssertionError("delta_rebuild did not give back the rows")
-    earlier = row_per_cta_rebuild()
     rng = np.random.default_rng(64)
 
     def check(args):
         pos, val, base_d, width = args
-        rec = check_kernel(
+        return check_kernel(
             "delta_rebuild", recon.delta_rebuild, recon.delta_rebuild_plain,
             args, f"B={pos.shape[0]} E={pos.shape[1]} w={width} "
             f"pos={str(pos.dtype).split('.')[-1]}",
             rebuild_bound(pos, val, base_d.shape[0], width),
             device_only=True)
-        if not torch.equal(earlier(*args), recon.delta_rebuild(*args)):
-            raise AssertionError(
-                f"the one-CTA-a-row kernel and delta_rebuild disagree at "
-                f"{rec['shape']}")
-        rec["earlier_ms"] = timed_ms(lambda: earlier(*args))
-        rec["earlier_device_ms"] = timed_graph_ms(lambda: earlier(*args))
-        log(f"    one CTA a row: {rec['earlier_ms']:.3f} ms a call, "
-            f"{rec['earlier_device_ms']:.4f} ms on the device alone")
-        return rec
 
     records["delta_rebuild"].update(check(args))
     for E, dt, width in ((1024, np.uint16, qd.width),
@@ -982,6 +953,219 @@ def phase_legacy(dev) -> None:
 
 
 # ----------------------------------------------------------------------
+# store and cluster
+
+
+def fasta_rows(path: Path, rows) -> dict:
+    """{i: letters of record i} for the record numbers in `rows`, from a
+    one-line-a-record FASTA file."""
+    want, out, i = set(rows), {}, -1
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b">"):
+                i += 1
+                if i > max(want):
+                    break
+            elif i in want:
+                out[i] = line.rstrip(b"\n")
+    return out
+
+
+def phase_store(dev, card: str, n: int) -> None:
+    """`ingest` of phase 4's genomes into a store with the port (block
+    BATCH, the native digest: phase 0 fails without the library),
+    `info --verify --json` on it, its rows
+    against the FASTA's, and `nearest` from it byte-equal to phase 4's
+    FASTA run (full mode, prune on)."""
+    from uvaia_tpu_torch.io import store as store_mod
+    db_fa, q_fa, st_dir = WORK / "s_db.fa", WORK / "s_q.fa", WORK / "s_db.uvst"
+    t0 = time.perf_counter()
+    if cli_main(["ingest", str(db_fa), "-o", str(st_dir), "--block",
+                 str(BATCH)]) != 0:
+        raise AssertionError("ingest failed")
+    wall = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in st_dir.iterdir())
+    log(f"  ingest: {n} genomes x {L_SITES} sites, block {BATCH}, native "
+        f"digest: {wall:.3f} s, {n / wall:,.1f} genomes/s; store "
+        f"{size:,} bytes ({size / n:,.0f} a genome; the FASTA "
+        f"{db_fa.stat().st_size:,}) ({card})")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["info", str(st_dir), "--verify", "--json"])
+    rec = json.loads(buf.getvalue())
+    if rc != 0 or not rec["verify"]["ok"] or rec["n_rows"] != n \
+            or rec["n_packed_only_blocks"] < 1 or rec["n_delta_blocks"] < 1:
+        raise AssertionError(f"info --verify: rc {rc}, {rec}")
+    log(f"  info --verify --json: exit 0, {rec['verify']['checked']} blocks "
+        f"checked, {rec['n_delta_blocks']} delta and "
+        f"{rec['n_packed_only_blocks']} packed-only")
+    far = n - BATCH // 2                 # phase 4's far row: packed-only
+    st = store_mod.Store(st_dir)
+    for i, row in fasta_rows(db_fa, [*range(SUBSET), far]).items():
+        if st.seq_row(i) != row:
+            raise AssertionError(f"store row {i} differs from the FASTA")
+    log(f"  Store.seq_row equals the FASTA on rows 0-{SUBSET - 1} and {far}")
+    names = NEAREST_KERNELS
+    for name in names:
+        KERNELS[name]["wrapper"].launches = 0
+    out = WORK / "s_store"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if cli_main(["nearest", "-r", str(st_dir), str(q_fa), "-n", "100", "-p",
+                 str(BATCH), "-o", str(out), "--device", str(dev)]) != 0:
+        raise AssertionError("nearest from the store failed")
+    wall = time.perf_counter() - t0
+    counts = {name: KERNELS[name]["wrapper"].launches for name in names}
+    got = (WORK / "s_store.csv.xz").read_bytes()
+    if got != (WORK / "s_prune.csv.xz").read_bytes():
+        raise AssertionError("nearest from the store: the CSV differs from "
+                             "phase 4's FASTA run")
+    if counts["delta_rebuild"] == 0:
+        raise AssertionError("nearest from the store never rebuilt a batch")
+    log(f"  nearest from the store: {n} genomes, Q=64, nbest=100, pool="
+        f"{BATCH}, prune on: {wall:.3f} s wall, {n / wall:,.1f} genomes/s; "
+        f"CSV byte-equal to phase 4's FASTA run; launches {counts} "
+        f"({card})")
+
+
+# phase 10's cluster distance: siblings in phase 4's files (genomes of
+# one of the 64 parents) sit 34-46 differences apart (median 42), genomes
+# of two parents 76 or more; at 38 about one sibling pair in seven is
+# within it, so rows join and found clusters both, and more than 1024
+# medoids grow the store past its first tier
+CLUSTER_DISTANCE = 38
+CLUSTER_POOL = 1024
+FIRST_TIER = 1024      # the medoid store's first size (MedoidIndex)
+
+
+def phase_cluster(dev, card: str, n: int) -> int:
+    """`cluster` on the card from phase 4's FASTA and from phase 10's
+    store (the same bytes), then on the first SUBSET genomes under
+    --device cuda and --device cpu (the same bytes); returns
+    delta_rebuild's launches over the card's runs.  Logs each run's rate,
+    medoids, tier, merge time and the share of its wall on the card in
+    the int8 products and in the feature planes (CUDA events)."""
+    from uvaia_tpu_torch.engine import cluster as cl
+    real = cl.MedoidIndex, cl._merge_clusters, cl.int8_product
+    seen, spans = {}, {"product": [], "planes": []}
+
+    def span(name, fn, *a, **kw):
+        if not any(isinstance(x, torch.Tensor) and x.is_cuda for x in a):
+            return fn(*a, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn(*a, **kw)
+        ev[1].record()
+        spans[name].append(ev)
+        return out
+
+    class Index(real[0]):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["index"] = self
+
+        def planes(self, codes, *a, **kw):
+            return span("planes", super().planes, codes, *a, **kw)
+
+    def merge(*a, **kw):
+        t0 = time.perf_counter()
+        out = real[1](*a, **kw)
+        seen["merge_s"] = time.perf_counter() - t0
+        return out
+
+    def run_one(src, out, device):
+        for v in spans.values():
+            v.clear()
+        recon.delta_rebuild.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli_main(["cluster", str(src), "-d", str(CLUSTER_DISTANCE),
+                     "-p", str(CLUSTER_POOL), "-o", str(WORK / out),
+                     "--device", device]) != 0:
+            raise AssertionError(f"cluster {out} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = recon.delta_rebuild.launches
+        idx = seen.pop("index")
+        rows = lzma.decompress((WORK / f"{out}.csv.xz").read_bytes()) \
+            .decode().split("\n")[:-1]
+        shares = {k: sum(a.elapsed_time(b) for a, b in v) / 1e3
+                  for k, v in spans.items()}
+        log(f"  cluster {out} --device {device}: {wall:.3f} s wall; "
+            f"{idx.n} medoids before the merge (store tier {idx.tier}), "
+            f"{len(rows)} clusters after it ({seen.pop('merge_s'):.3f} s), "
+            f"{sum(r.count(',') for r in rows)} joined rows; "
+            f"delta_rebuild launches {launches}; on the card: products "
+            f"{shares['product']:.3f} s ({len(spans['product'])} calls), "
+            f"feature planes {shares['planes']:.3f} s")
+        return wall, idx, launches, shares, rows
+
+    cl.MedoidIndex, cl._merge_clusters = Index, merge
+    cl.int8_product = lambda a, b: span("product", real[2], a, b)
+    try:
+        fa = run_one(WORK / "s_db.fa", "c_fa", str(dev))
+        st = run_one(WORK / "s_db.uvst", "c_st", str(dev))
+        sub_cuda = run_one(WORK / "s_db_sub.fa", "c_sub_cuda", str(dev))
+        sub_cpu = run_one(WORK / "s_db_sub.fa", "c_sub_cpu", "cpu")
+    finally:
+        cl.MedoidIndex, cl._merge_clusters, cl.int8_product = real
+    for (a, b) in (("c_fa", "c_st"), ("c_sub_cuda", "c_sub_cpu")):
+        for ext in (".csv.xz", ".aln.xz"):
+            if (WORK / (a + ext)).read_bytes() != \
+                    (WORK / (b + ext)).read_bytes():
+                raise AssertionError(f"cluster: {a}{ext} and {b}{ext} differ")
+    wall, idx, _, shares, rows = fa
+    if idx.n <= FIRST_TIER or idx.tier <= FIRST_TIER:
+        raise AssertionError(f"cluster made {idx.n} medoids (tier "
+                             f"{idx.tier}): the store never grew a tier")
+    if not 1 < len(rows) < n or not any("," in r for r in rows):
+        raise AssertionError(f"cluster: {len(rows)} clusters of {n}")
+    launches = [r[2] for r in (fa, st, sub_cuda)]
+    if 0 in launches or sub_cpu[2] != 0:
+        raise AssertionError(f"cluster: delta_rebuild launches {launches} "
+                             f"on the card, {sub_cpu[2]} on the CPU")
+    log(f"  cluster at scale: {n} genomes x {L_SITES} sites, -d "
+        f"{CLUSTER_DISTANCE}, pool {CLUSTER_POOL}: from the FASTA {wall:.3f} "
+        f"s ({n / wall:,.1f} genomes/s), from the store {st[0]:.3f} s "
+        f"({n / st[0]:,.1f} genomes/s), .csv.xz and .aln.xz byte-equal; "
+        f"products {shares['product'] / wall:.1%} of the FASTA run's wall, "
+        f"feature planes {shares['planes'] / wall:.1%} ({card})")
+    log(f"  cluster on the first {SUBSET}: cuda {sub_cuda[0]:.3f} s, cpu "
+        f"{sub_cpu[0]:.3f} s, .csv.xz and .aln.xz byte-equal")
+    phase_product(dev, idx)
+    return sum(launches)
+
+
+def phase_product(dev, idx) -> None:
+    """cluster's distance product (torch._int_mm, a library call: the
+    JAX package's XLA dot_general, no Pallas kernel) at the main path's
+    shape, a pool of CLUSTER_POOL rows against the medoid store the
+    FASTA run ended with: its time, its int8 bound, the feature planes'
+    time; and its distances on a corner of the store equal to the CPU's."""
+    from uvaia_tpu_torch.engine import cluster as cl
+    n = idx.n
+    rows, meds = idx._codes[:CLUSTER_POOL], idx._codes[:n]
+    pb = idx.planes(rows, CLUSTER_POOL)
+    pm = idx.planes(meds, -n % 8 + n, signed=True)
+    M, K = pb.shape
+    N = pm.shape[0]
+    ms = timed_ms(lambda: cl.int8_product(pb, pm))
+    bnd = bound(M * K + N * K + 4 * M * N, int8_ops=2.0 * M * N * K)
+    planes_ms = timed_ms(lambda: idx.planes(meds, N, signed=True))
+    planes_bnd = bound(n * L_SITES + N * K)
+    cpu = cl.MedoidIndex(idx.L, idx.capacity, idx.trim, device="cpu")
+    want = cpu.dists(rows[:24].cpu(), meds[:64].cpu())
+    if not torch.equal(idx.dists(rows[:24], meds[:64]).cpu(), want):
+        raise AssertionError("cluster distances on the card differ from "
+                             "the CPU's")
+    log(f"  distance product (torch._int_mm) M={M} N={N} K={K}: {ms:.3f} "
+        f"ms, {2.0 * M * N * K / ms / 1e9:,.1f} TOP/s, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); the medoid planes "
+        f"{planes_ms:.3f} ms (bound {planes_bnd['bound_ms']:.4f} ms, "
+        f"bytes); 24 x 64 distances equal to the CPU's")
+
+
+# ----------------------------------------------------------------------
 # align: synthetic unaligned genomes (letters)
 
 
@@ -1304,7 +1488,7 @@ def finish_cpu_subset(work: dict) -> None:
 
 
 def run(dev: torch.device, card: str) -> dict:
-    """Phases 1-9 on `dev`; returns the kernels' JSON records."""
+    """Phases 1-10 on `dev`; returns the kernels' JSON records."""
     WORK.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(2024)
     records = {name: dict(name=name, route="cuda", source=w["source"],
@@ -1357,6 +1541,12 @@ def run(dev: torch.device, card: str) -> dict:
         log("phase 9: legacy, cuda vs cpu vs the numpy oracle")
         phase_legacy(dev)
         lap("phase 9")
+        log("phase 10: ingest, info --verify, nearest from the store, "
+            "cluster at scale and cuda vs cpu")
+        phase_store(dev, card, 16384)
+        records["delta_rebuild"]["launches"] += phase_cluster(dev, card,
+                                                              16384)
+        lap("phase 10")
     finally:
         if work is not None and work["proc"].poll() is None:
             work["proc"].kill()
@@ -1365,8 +1555,7 @@ def run(dev: torch.device, card: str) -> dict:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
-    more = ("other_shapes", "device_ms", "library_device_ms", "earlier_ms",
-            "earlier_device_ms")
+    more = ("other_shapes", "device_ms", "library_device_ms")
     return {"kernels": [{**{k: r[k] for k in keys},
                          **{k: r[k] for k in more if k in r}}
                         for r in records.values()]}

@@ -5,11 +5,11 @@
 Builds the kernel library (printing ptxas' registers, shared memory and
 spills for recon.cu) and the one-CTA-a-row kernel it replaced
 (scripts/recon_row_per_cta.cu), then
-  * `check`: csrc/recon.cu against the plain PyTorch version, exactly,
-    on synthetic entries at B = 4096, L = 29,903 (E in {128, 1024,
-    4096}, uint16 and int32 positions, w = 30,720 and the ragged w = L,
-    the same entries with their slots shuffled, a base that is not
-    16-byte aligned);
+  * `check`: csrc/recon.cu and the one-CTA-a-row kernel against the
+    plain PyTorch version, exactly, on synthetic entries at B = 4096,
+    L = 29,903 (E in {128, 1024, 4096}, uint16 and int32 positions,
+    w = 30,720 and the ragged w = L, the same entries with their slots
+    shuffled, a base that is not 16-byte aligned);
   * `time`: the kernel at each E and width beside the one-CTA-a-row
     kernel and the bytes-over-3.35-TB/s bound: the CUDA-event median of
     a call (host work included: about half of a 0.1 ms call) and of a
@@ -53,6 +53,33 @@ def batch(dev, E, dtype, seed=5, shuffle=False):
         pos = np.take_along_axis(pos, order, 1)
         val = np.take_along_axis(val, order, 1)
     return [torch.from_numpy(x).to(dev) for x in (pos, val)]
+
+
+def row_per_cta_rebuild():
+    """The one-CTA-a-row rebuild (scripts/recon_row_per_cta.cu, the
+    design csrc/recon.cu replaced), built here and bound with ctypes: a
+    callable (pos, val, base, width) -> rows, checked and timed beside
+    the kernel.  The port never calls it."""
+    src = ROOT / "scripts" / "recon_row_per_cta.cu"
+    lib_path = _build.BUILD_DIR / "librecon_row_per_cta.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                    str(src)], check=True)
+    fn = ctypes.CDLL(str(lib_path)).uvt_delta_rebuild_row_per_cta
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P, I, P, P, I, I, I, I, P, P]
+    fn.restype = I
+
+    def rebuild(pos, val, base, width):
+        out = torch.empty((pos.shape[0], width), dtype=torch.uint8,
+                          device=pos.device)
+        _build.check(fn(pos.data_ptr(), pos.element_size(), val.data_ptr(),
+                        base.data_ptr(), *pos.shape, base.shape[0], width,
+                        out.data_ptr(), _build.stream_ptr(pos)),
+                     "row_per_cta_rebuild")
+        return out
+    return rebuild
 
 
 # name -> (old, new) text patches of csrc/recon.cu
@@ -145,7 +172,7 @@ def main() -> int:
                           text=True).stdout.strip()
     print(card, flush=True)
     _build.build(verbose=True)
-    earlier = chip_smoke.row_per_cta_rebuild()
+    earlier = row_per_cta_rebuild()
     rng = np.random.default_rng(1)
     base_np = rng.integers(0, 16, L + 3).astype(np.uint8)
     base = torch.from_numpy(base_np[:L]).to(dev)
@@ -158,13 +185,16 @@ def main() -> int:
                 pos, val = batch(dev, E, dt, shuffle=shuffle)
                 for b in (base, base_odd):
                     want = recon.delta_rebuild_plain(pos, val, b, w)
-                    got = recon.delta_rebuild(pos, val, b, w)
-                    torch.cuda.synchronize()
-                    if not torch.equal(got, want):
-                        bad = (got != want).nonzero()
-                        raise AssertionError(
-                            f"E={E} {dt.__name__} w={w} shuffle={shuffle}: "
-                            f"{len(bad)} bytes differ, first at {bad[0]}")
+                    for name, fn in (("kernel", recon.delta_rebuild),
+                                     ("one CTA a row", earlier)):
+                        got = fn(pos, val, b, w)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, want):
+                            bad = (got != want).nonzero()
+                            raise AssertionError(
+                                f"{name} E={E} {dt.__name__} w={w} "
+                                f"shuffle={shuffle}: {len(bad)} bytes "
+                                f"differ, first at {bad[0]}")
                     del want, got
                 print(f"check E={E} {dt.__name__} w={w} "
                       f"shuffle={shuffle}: exact", flush=True)

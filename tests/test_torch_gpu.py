@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions, and `nearest` (full mode and --acgt) and `align` on the card
-against the same runs on the CPU.
+versions, and `nearest` (full mode and --acgt), `align` and `cluster`
+on the card against the same runs on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no jax, so it also runs where jax is not installed, without
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from uvaia_tpu_torch.core.encoding import encode
-from uvaia_tpu_torch.engine import align, nearest
+from uvaia_tpu_torch.engine import align, cluster, nearest
 from uvaia_tpu_torch.engine.query import QueryPack
 from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
 from uvaia_tpu_torch.ops import host, recon, scan, score_kernels as sk
@@ -532,3 +532,67 @@ def test_gpu_align_matches_cpu(cuda_device, tmp_path, monkeypatch, ev_cap):
     assert stats["cuda"] == stats["cpu"]
     assert stats["cuda"].n_output == len(qs)
     assert filecmp.cmp("cuda.aln.xz", "cpu.aln.xz", shallow=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 17, 40])
+def test_gpu_cluster_distance_product_matches_cpu(cuda_device, B):
+    """cluster's int8 product (torch._int_mm) on the card: rows padded to
+    its 17-row minimum, sites to a multiple of 8, the same int32
+    distances as on the CPU, over all 16 codes with --trim."""
+    rng = np.random.default_rng(B)
+    L, trim, M = 2003, 11, 37
+    a = rng.integers(0, 16, (B, L)).astype(np.uint8)
+    m = rng.integers(0, 16, (M, L)).astype(np.uint8)
+    m[:min(B, 3)] = a[:3]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        idx = cluster.MedoidIndex(L, 64, trim, initial_tier=16, device=dev)
+        got[dev] = idx.dists(torch.from_numpy(a).to(dev),
+                             torch.from_numpy(m).to(dev))
+    assert got["cuda"].dtype == torch.int32
+    assert torch.equal(got["cuda"].cpu(), got["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [2999, 29903])
+def test_gpu_cluster_assign_rebuilds_at_width_L(cuda_device, L):
+    """assign on the card rebuilds the delta batch through delta_rebuild
+    at the ragged width L (one launch), and returns what the CPU index
+    returns from the plain rebuild."""
+    rng = np.random.default_rng(L)
+    codes = np.stack([encode(r) for r in _alignment(rng, 40, L, 0.002)])
+    codes[::3, 100:400] = 0
+    ref = host.majority_code(codes)           # few diffs: a delta batch
+    ok = np.ones(40, bool)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        idx = cluster.MedoidIndex(L, 1 << 10, 7, initial_tier=16,
+                                  delta_base=ref, stats_ref=ref, n_snps=2,
+                                  device=dev)
+        idx.append(codes[:5])
+        before = recon.delta_rebuild.launches
+        out[dev] = idx.assign(codes, ok, 12)
+        assert recon.delta_rebuild.launches == before + (dev == "cuda")
+    for g, w in zip(out["cuda"][:-1], out["cpu"][:-1], strict=True):
+        np.testing.assert_array_equal(g, w)
+    assert out["cuda"][-1].shape == (40, L)
+    assert torch.equal(out["cuda"][-1].cpu(), out["cpu"][-1])
+    np.testing.assert_array_equal(out["cpu"][-1].numpy(), codes)
+
+
+@pytest.mark.gpu
+def test_gpu_cluster_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """cluster on the card from FASTA and from the store the port wrote:
+    the bytes of the plain run on the CPU."""
+    from uvaia_tpu_torch.io.store import ingest
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(23)
+    _write("db.fa", "g", _alignment(rng, 300, 1501, 0.004))
+    ingest(["db.fa"], "db.uvst", block=64)
+    for src in ("db.fa", "db.uvst"):
+        for dev in ("cuda", "cpu"):
+            cluster.run_cluster([src], cluster.ClusterConfig(
+                distance=4, pool=48, snps=2, device=dev, output=dev))
+        for ext in (".csv.xz", ".aln.xz"):
+            assert filecmp.cmp("cuda" + ext, "cpu" + ext, shallow=False)

@@ -2,8 +2,10 @@
 process where importing jax, jaxlib or any `uvaia_tpu` module raises,
 the package imports, `python -m uvaia_tpu_torch nearest --device cpu
 --keep_resolved` (in full mode and with --acgt), `python -m
-uvaia_tpu_torch align --device cpu` and the `ball` and `legacy`
-commands run to exit 0, and chip_smoke imports; and no source file of
+uvaia_tpu_torch align --device cpu`, the `ball` and `legacy` commands,
+`ingest`, `info --verify` and `cluster` (from the store it wrote and
+from the FASTA, with the same bytes) run to exit 0, and chip_smoke
+imports; and no source file of
 the port (nor chip_smoke.py, nor the port's scripts) holds an import
 statement of `uvaia_tpu`."""
 
@@ -50,7 +52,13 @@ for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
              ["ball", "-r", "db.fa", "q.fa", "-d", "20", "-p", "8",
               "--device", "cpu", "-o", "nojax_ball"],
              ["legacy", "-r", "db.fa", "q.fa", "-n", "2", "--device", "cpu",
-              "-o", "nojax_legacy"]):
+              "-o", "nojax_legacy"],
+             ["ingest", "db.fa", "-o", "nojax.uvst", "--block", "8"],
+             ["info", "nojax.uvst", "--verify"],
+             ["cluster", "nojax.uvst", "-d", "30", "-p", "8", "--device",
+              "cpu", "-o", "nojax_cluster"],
+             ["cluster", "db.fa", "-d", "30", "-p", "8", "--device", "cpu",
+              "-o", "nojax_cluster_fa"]):
     sys.argv = ["uvaia_tpu_torch", *argv]
     try:
         runpy.run_module("uvaia_tpu_torch", run_name="__main__")
@@ -95,6 +103,11 @@ def test_port_runs_without_jax(tmp_path):
     assert (tmp_path / "nojax_ball.aln.xz").exists()
     assert r.stdout.count("\n") > 1 + 3 * 2          # the legacy table
     assert (tmp_path / "nojax_legacy.fa.xz").exists()
+    assert "Ingested 20 sequences x 250 sites" in r.stderr
+    assert "verify           OK: 3 blocks checked" in r.stdout
+    for f in ("nojax_cluster.csv.xz", "nojax_cluster.aln.xz"):
+        assert (tmp_path / f).read_bytes() == \
+            (tmp_path / f.replace("cluster", "cluster_fa")).read_bytes()
 
 
 PORT_SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in

@@ -1,15 +1,16 @@
 """Command line of the PyTorch port: ``python -m uvaia_tpu_torch
-nearest|align|ball|legacy``.
+nearest|align|ball|cluster|legacy|ingest|info``.
 
 The flags are uvaia_tpu's own (the port's copies of the subcommand
-parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}``;
-``nearest`` runs in full mode and with ``--acgt``.  Options whose paths
-are not ported yet (``--devices > 1``, ``--site-shards > 1``,
-``--num-hosts > 1``) exit with an error instead of running elsewhere;
-``cluster``, ``ingest`` and ``info`` are not ported yet.
-The port reads stores written by ``uvaia_tpu ingest``.  Exit codes are
-uvaia_tpu's: 2 for a file that cannot be opened or written, 130 on
-interrupt, and a quiet 0 when a reader closes the output pipe.
+parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}`` on
+the five tools; ``nearest`` runs in full mode and with ``--acgt``.
+Options whose paths are not ported yet (``--devices > 1``,
+``--site-shards > 1``, ``--num-hosts > 1``) exit with an error instead
+of running elsewhere.  ``ingest`` writes the same store directory as
+``uvaia_tpu ingest``, and ``info`` reads either package's stores.
+Exit codes are uvaia_tpu's: 2 for a file that cannot be opened or
+written, 1 for ``info --verify`` on a corrupt store, 130 on interrupt,
+and a quiet 0 when a reader closes the output pipe.
 """
 
 from __future__ import annotations
@@ -187,6 +188,72 @@ def _add_ball(sub):
     return p
 
 
+def _add_cluster(sub):
+    p = sub.add_parser(
+        "cluster", help="one-pass canopy clustering/dedup",
+        epilog="Canopy clustering: sequences within --distance ACGT "
+               "mismatches of an existing medoid join its cluster, "
+               "others found a new one; partial clusters are merged "
+               "at the end (cluster.c:219-230).  Each cluster's "
+               "medoid is its most-resolved member (furthest from the "
+               "consensus reference on ties).  Outputs the medoid "
+               "alignment and a membership CSV; partial tables are "
+               "saved every --save-interval seconds for crash "
+               "resilience (cluster.c:197-200).",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-d", "--distance", type=int, default=1)
+    p.add_argument("--trim", type=int, default=0)
+    p.add_argument("-p", "--pool", type=int, default=1024,
+                   help="sequences clustered per device batch")
+    p.add_argument("-s", "--snps", type=int, default=1)
+    p.add_argument("-r", "--reference", default=None)
+    p.add_argument("--save-interval", type=float, default=30.0,
+                   help="seconds between partial membership saves "
+                        "(crash resilience, as in uvaiaclust)")
+    p.add_argument("fasta", nargs="+")
+    p.add_argument("-o", "--output", default=None)
+    _add_codec(p)
+    return p
+
+
+def _add_ingest(sub):
+    p = sub.add_parser(
+        "ingest", help="index an aligned reference database once into a "
+        "persistent binary store; nearest/ball/cluster/legacy then scan "
+        "it with zero decompression (pass the store directory wherever "
+        "a reference FASTA is accepted)")
+    p.add_argument("-o", "--output", required=True,
+                   help="store directory to create (must not exist)")
+    p.add_argument("--block", type=int, default=4096,
+                   help="rows per store block (default 4096, matching "
+                        "the default scan pool)")
+    p.add_argument("--frames", action="store_true",
+                   help="also pre-compress every row as an xz dump "
+                        "frame (scan-time dumps become byte copies; "
+                        "costs one xz stream a row at ingest — worth it "
+                        "only when the store is dump-scanned many times)")
+    p.add_argument("--append", action="store_true",
+                   help="extend an EXISTING store in place (new "
+                        "sequence drops without a full re-ingest; the "
+                        "frames setting is inherited from the store)")
+    p.add_argument("fasta", nargs="+",
+                   help="aligned reference database(s), xz/gz/bz2/raw")
+    return p
+
+
+def _add_info(sub):
+    p = sub.add_parser(
+        "info", help="inspect an ingested store: rows, sites, block "
+        "mix, dump frames, per-component bytes, valid-site spread")
+    p.add_argument("store", help="store directory written by `ingest`")
+    p.add_argument("--json", action="store_true",
+                   help="machine-readable output")
+    p.add_argument("--verify", action="store_true",
+                   help="recompute every block's ingest-time CRC32 and "
+                        "check section extents; exit 1 on corruption")
+    return p
+
+
 def _add_legacy(sub):
     p = sub.add_parser(
         "legacy", help="in-memory searcher (pre-2022 uvaia behaviour)",
@@ -232,11 +299,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-v", "--version", action="version",
                     version=f"uvaia_tpu_torch {__version__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for add in (_add_nearest, _add_align, _add_ball, _add_legacy):
+    for add in (_add_nearest, _add_align, _add_ball, _add_cluster,
+                _add_legacy):
         add(sub).add_argument(
             "--device", default="cuda", choices=["cuda", "cpu"],
             help="cuda (default): the hand-written kernels and torch "
                  "ops on the GPU; cpu: the plain PyTorch versions")
+    _add_ingest(sub)
+    _add_info(sub)
     return ap
 
 
@@ -281,6 +351,77 @@ def _dispatch(args) -> int:
             query_ambiguity=args.query_ambiguity,
             ref_ambiguity=args.ref_ambiguity, pool=args.pool,
             output=args.output, codec=args.codec, device=args.device))
+        return 0
+    if args.cmd == "cluster":
+        from .engine.cluster import ClusterConfig, run_cluster
+        cfg = ClusterConfig(distance=args.distance, trim=args.trim,
+                            pool=args.pool, snps=args.snps,
+                            reference=args.reference, output=args.output,
+                            save_interval=args.save_interval,
+                            codec=args.codec, device=args.device)
+        run_cluster(args.fasta, cfg)
+        return 0
+    if args.cmd == "ingest":
+        from .io.store import ingest
+
+        def _progress(n, dt, _last=[0.0]):
+            if dt - _last[0] >= 10.0:
+                _last[0] = dt
+                print(f"ingested {n} sequences, {n/max(dt,1e-9):,.0f} "
+                      f"genomes/sec", file=sys.stderr)
+        st = ingest(args.fasta, args.output, block=args.block,
+                    progress=_progress, frames=args.frames,
+                    append=args.append)
+        verb = "Appended" if args.append else "Ingested"
+        print(f"{verb} {st.n_rows} sequences x {st.n_sites} sites into "
+              f"{args.output} ({st.bytes/1e6:.1f} MB, "
+              f"{st.n_delta_blocks} delta + {st.n_packed_blocks} "
+              f"packed-only blocks) in {st.seconds:.1f}s "
+              f"({st.n_rows/max(st.seconds,1e-9):,.0f} genomes/sec)",
+              file=sys.stderr)
+        return 0
+    if args.cmd == "info":
+        import json as _json
+
+        from .io.store import info, verify
+        try:
+            rec = info(args.store)
+            if args.verify:
+                rec["verify"] = verify(args.store)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}")
+        ver = rec.get("verify")
+        if args.json:
+            print(_json.dumps(rec, indent=1))
+            return 0 if ver is None or ver["ok"] else 1
+        vs = rec.get("valid_sites", {})
+        print(f"{args.store}: {rec['format']} v{rec['version']}")
+        print(f"  rows x sites     {rec['n_rows']} x {rec['n_sites']}")
+        print(f"  blocks           {rec['n_blocks']} x {rec['block']} "
+              f"rows ({rec['n_delta_blocks']} delta, "
+              f"{rec['n_packed_only_blocks']} packed-only)")
+        print(f"  dump frames      "
+              f"{'yes' if rec['has_rowxz'] else 'no'}")
+        print(f"  crc coverage     {rec['crc_blocks']}/{rec['n_blocks']}"
+              f" blocks")
+        if vs:
+            print(f"  valid sites/row  min {vs['min']}  mean "
+                  f"{vs['mean']}  max {vs['max']}")
+        print(f"  total bytes      {rec['total_bytes']:,} "
+              f"({rec['total_bytes']/max(rec['n_rows'],1):,.0f}/row)")
+        for name, sz in rec["component_bytes"].items():
+            print(f"    {name:<22} {sz:,}")
+        print(f"  sources          {', '.join(rec['sources'])}")
+        if ver is not None:
+            state = "OK" if ver["ok"] else "CORRUPT"
+            print(f"  verify           {state}: {ver['checked']} blocks "
+                  f"checked, {ver['unknown']} pre-checksum", end="")
+            if ver["bad_blocks"]:
+                print(f", BAD blocks {ver['bad_blocks']}", end="")
+            for e in ver["errors"]:
+                print(f"\n    ERROR {e}", end="")
+            print()
+            return 0 if ver["ok"] else 1
         return 0
     if args.cmd == "legacy":
         from .engine.legacy import LegacyConfig, run_legacy

@@ -1,7 +1,6 @@
-// Streaming FASTA reader over xz / gzip / raw files, and the sparse-delta
-// encoder of the scan's uploads: the port's copy of
-// uvaia_tpu/native/fasta_io.cpp (the store-block digest of `ingest` left
-// out).
+// Streaming FASTA reader over xz / gzip / raw files, the sparse-delta
+// encoder of the scan's uploads and the store-block digest of `ingest`:
+// the port's copy of uvaia_tpu/native/fasta_io.cpp.
 //
 // Native replacement for the host-side input path (the reference uses
 // biomcmc-lib's file_compress_t + readfasta_next, fastaseq.c:410-486):
@@ -738,6 +737,74 @@ void ufa_delta_repack(const uint16_t* pos_in, const uint8_t* val_in,
       vrow[s] = 0;
     }
   }
+}
+
+// One-pass store-block digest for the persistent index (io/store.py
+// ingest): packs codes two-per-byte, counts valid sites, extracts '-'
+// runs and residual decode exceptions — all in a single scan of the
+// (n, stride) block, where the numpy pipeline (io/store.py, without the
+// library) makes ~8 passes.
+//   packed    — n * ((stride+1)/2) bytes out
+//   valid     — n counts out
+//   runs      — (start, len) uint32 pairs, runs_cap PAIRS capacity
+//   run_counts— per-row run counts out
+//   exc_*     — positions/chars where decode_lut[code] != raw (and the
+//               char is not '-'), exc_cap entries capacity
+// Returns 0, or -1 when a capacity would overflow (caller retries with
+// bigger buffers).
+long ufa_store_block(const uint8_t* raw, const uint8_t* codes,
+                     long n, long stride, const uint8_t* decode_lut,
+                     uint8_t* packed, long* valid,
+                     uint32_t* runs, long runs_cap, long* run_counts,
+                     uint32_t* exc_pos, uint8_t* exc_chr, long exc_cap,
+                     long* exc_counts) {
+  long w2 = (stride + 1) / 2;
+  long nrun = 0, nexc = 0;
+  for (long r = 0; r < n; r++) {
+    const uint8_t* rw = raw + r * stride;
+    const uint8_t* cd = codes + r * stride;
+    uint8_t* pk = packed + r * w2;
+    long v = 0;
+    long run_start = -1;
+    long runs0 = nrun, exc0 = nexc;
+    for (long i = 0; i < stride; i++) {
+      uint8_t c = cd[i];
+      v += (c != 0);
+      if (i & 1) {
+        pk[i >> 1] |= c;
+      } else {
+        pk[i >> 1] = static_cast<uint8_t>(c << 4);
+      }
+      uint8_t ch = rw[i];
+      if (ch == '-') {
+        if (run_start < 0) run_start = i;
+      } else {
+        if (run_start >= 0) {
+          if (nrun >= runs_cap) return -1;
+          runs[2 * nrun] = static_cast<uint32_t>(run_start);
+          runs[2 * nrun + 1] = static_cast<uint32_t>(i - run_start);
+          nrun++;
+          run_start = -1;
+        }
+        if (decode_lut[c] != ch) {
+          if (nexc >= exc_cap) return -1;
+          exc_pos[nexc] = static_cast<uint32_t>(i);
+          exc_chr[nexc] = ch;
+          nexc++;
+        }
+      }
+    }
+    if (run_start >= 0) {
+      if (nrun >= runs_cap) return -1;
+      runs[2 * nrun] = static_cast<uint32_t>(run_start);
+      runs[2 * nrun + 1] = static_cast<uint32_t>(stride - run_start);
+      nrun++;
+    }
+    valid[r] = v;
+    run_counts[r] = nrun - runs0;
+    exc_counts[r] = nexc - exc0;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """ctypes bridge to the port's native host library (csrc/host/fasta_io.cpp):
-the FASTA reader over raw / gzip / xz files and the sparse-delta encoder
-(``ufa_delta_extract`` / ``ufa_delta_repack``, used by ops/host.py).
+the FASTA reader over raw / gzip / xz files, the sparse-delta encoder
+(``ufa_delta_extract`` / ``ufa_delta_repack``, used by ops/host.py) and
+the store-block digest of ``ingest`` (``ufa_store_block``, io/store.py).
 
 The counterpart of ``uvaia_tpu/io/native.py``, with its own copy of the
 source and its own build.  The library is compiled with ``g++`` at first
@@ -115,6 +116,14 @@ def load(path: Path):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ctypes.c_long, ctypes.c_void_p, ctypes.c_long,
         ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p]
+    lib.ufa_store_block.restype = ctypes.c_long
+    lib.ufa_store_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_void_p]
     return lib
 
 

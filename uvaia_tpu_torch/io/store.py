@@ -1,8 +1,11 @@
-"""Reading persistent database stores: the port's copy of the reading
-half of ``uvaia_tpu/io/store.py`` (``is_store``, ``peek_store_base``,
-``Store``, ``StoreBatch``, ``StoreStreamer``), so the port scans stores
-written by ``uvaia_tpu ingest`` decode-free, exactly as the JAX package
-does.  ``ingest``, ``info`` and ``verify`` are not ported yet.
+"""Persistent database stores: the port's copy of
+``uvaia_tpu/io/store.py``.  ``ingest`` writes a store once (byte for
+byte the directory ``uvaia_tpu ingest`` writes from the same FASTA),
+``info`` and ``verify`` inspect and check one, and ``Store``,
+``StoreBatch`` and ``StoreStreamer`` feed the scans from it
+decode-free.  Host code only: the rows are digested by the port's
+native library (csrc/host/fasta_io.cpp ``ufa_store_block``) or, without
+it, by numpy, and delta-encoded by ops/host.py.
 
 Store layout (a directory, so every section is written streamingly and
 mmap-ed independently):
@@ -65,6 +68,9 @@ simply override the query-majority delta base with the store base.
 from __future__ import annotations
 
 import json
+import os
+import time
+import zlib
 from dataclasses import dataclass, field
 from pathlib import Path
 
@@ -74,6 +80,12 @@ from ..core.encoding import DECODE_LUT
 from ..utils.prefetch import Prefetcher
 
 FORMAT = "uvaia-tpu-store"
+VERSION = 1
+#: integrity-checksum composition id (meta "crc"): what byte sections
+#: each block_crc.npy entry covers.  Bumped if the composition ever
+#: changes; verify() treats any other scheme's entries as unknown.
+CRC_SCHEME = 2
+DEFAULT_BLOCK = 4096
 
 
 def _unpack_nibbles(pk: np.ndarray, n_sites: int) -> np.ndarray:
@@ -99,6 +111,228 @@ def is_store(path) -> bool:
         return False
 
 
+def peek_store_rows(path) -> int:
+    """Row count from meta.json alone (no mmap, no names blob) — the
+    multihost row splitter needs counts before any host opens stores."""
+    with open(Path(path) / "meta.json") as fh:
+        return int(json.load(fh)["n_rows"])
+
+
+def info(path) -> dict:
+    """Inspect a committed store without loading it: meta fields plus
+    per-component on-disk bytes (committed extents only — a crashed
+    append may leave orphan bytes past the meta, which `--append`
+    truncates on its next run) and the valid-site distribution.
+
+    The reference has no persistent index to inspect; this serves the
+    store format's own operability (the analogue of its stderr QC
+    summary, utils.c:11-48, for an already-ingested database).
+    """
+    p = Path(path)
+    if not is_store(p):
+        raise ValueError(f"{path} is not a committed {FORMAT} directory")
+    with open(p / "meta.json") as fh:
+        meta = json.load(fh)
+    out = {k: meta[k] for k in ("format", "version", "n_rows", "n_sites",
+                                "block", "sources")}
+    # .get: stores written before a feature landed lack its meta key
+    # (VERSION stays 1, additions are backwards-compatible)
+    out["has_delta"] = bool(meta.get("has_delta"))
+    out["has_rowxz"] = bool(meta.get("has_rowxz"))
+    n_rows = int(meta["n_rows"])
+    # committed entries only: a crashed append may have saved longer
+    # arrays than its meta commit covers (same clip as ingest/verify)
+    committed = [b for b in np.load(p / "blocks.npy")
+                 if int(b[0]) < n_rows]
+    blocks = np.asarray(committed, dtype=np.int64).reshape(-1, 5)
+    # delta blocks record their bucket width E > 0; packed-only blocks
+    # are written as (row0, n, 0, 0, 0) (see ingest above)
+    n_delta = int((blocks[:, 2] > 0).sum()) if blocks.size else 0
+    out["n_blocks"] = int(blocks.shape[0])
+    out["n_delta_blocks"] = n_delta
+    out["n_packed_only_blocks"] = int(blocks.shape[0]) - n_delta
+    valid = np.load(p / "valid.npy", mmap_mode="r")[:n_rows]
+    if valid.size:
+        out["valid_sites"] = {"min": int(valid.min()),
+                              "mean": round(float(valid.mean()), 1),
+                              "max": int(valid.max())}
+    crc_file = p / "block_crc.npy"
+    out["crc_blocks"] = int(
+        (np.load(crc_file)[: blocks.shape[0]] >= 0).sum()) \
+        if crc_file.is_file() and meta.get("crc") == CRC_SCHEME else 0
+    sizes = {f.name: f.stat().st_size for f in sorted(p.iterdir())
+             if f.is_file()}
+    out["component_bytes"] = sizes
+    out["total_bytes"] = sum(sizes.values())
+    return out
+
+
+def verify(path, progress=None) -> dict:
+    """Recompute every committed block's CRC32 against block_crc.npy
+    — covering the block's packed rows, names, valid counts, gap runs,
+    decode exceptions, dump frames and delta sections (everything the
+    ingest hashed, see the CRC composition in ingest()) — plus
+    structural checks (offsets present, sized and monotonic; committed
+    extents fit their files).  Returns
+    ``{"ok", "checked", "unknown", "bad_blocks", "errors"}`` —
+    bit-rot in a persistent index silently corrupts downstream science,
+    so this is the explicit operability pass (the reference has no
+    persistent index; its xz inputs carry their own stream checksums).
+    Blocks of a store ingested before checksums landed count as
+    ``unknown``, never as corrupt.
+
+    ``progress(blocks_done, n_blocks)`` is called per block when given.
+    """
+    p = Path(path)
+    if not is_store(p):
+        raise ValueError(f"{path} is not a committed {FORMAT} directory")
+    with open(p / "meta.json") as fh:
+        meta = json.load(fh)
+    n_rows, w2 = int(meta["n_rows"]), int(meta["w2"])
+    blocks = np.load(p / "blocks.npy")
+    errors: list[str] = []
+
+    def _mm(name):
+        """1-D uint8 view of a bin file, or None (recorded) if absent."""
+        f = p / name
+        if not f.is_file():
+            errors.append(f"{name}: missing")
+            return None
+        sz = f.stat().st_size
+        return np.memmap(f, dtype=np.uint8, mode="r") if sz else \
+            np.empty(0, np.uint8)
+
+    def _offsets(name):
+        """Committed offsets array, validated; None (recorded) on any
+        structural problem so the CRC loop can skip what it can't
+        locate instead of crashing."""
+        f = p / name
+        if not f.is_file():
+            errors.append(f"{name}: missing")
+            return None
+        off = np.load(f)
+        if off.shape[0] < n_rows + 1:
+            errors.append(f"{name}: {off.shape[0]} ends < {n_rows + 1}")
+            return None
+        off = off[: n_rows + 1]
+        if off.shape[0] and (np.diff(off) < 0).any():
+            errors.append(f"{name}: offsets not monotonic")
+            return None
+        return off
+
+    packed = _mm("packed.bin")
+    names = _mm("names.bin")
+    runs = _mm("gapruns.bin")
+    epos = _mm("exc_pos.bin")
+    echr = _mm("exc_chr.bin")
+    name_off = _offsets("name_offsets.npy")
+    run_off = _offsets("gaprun_offsets.npy")
+    exc_off = _offsets("exc_offsets.npy")
+    valid = None
+    if (p / "valid.npy").is_file():
+        valid = np.load(p / "valid.npy", mmap_mode="r")
+        if valid.shape[0] < n_rows:
+            errors.append(f"valid.npy: {valid.shape[0]} rows < {n_rows}")
+            valid = None
+    else:
+        errors.append("valid.npy: missing")
+    rowxz = rowxz_off = None
+    if meta.get("has_rowxz"):
+        rowxz = _mm("rowxz.bin")
+        rowxz_off = _offsets("rowxz_offsets.npy")
+    dpos = _mm("delta_pos.bin") if meta.get("has_delta") else \
+        np.empty(0, np.uint8)
+    dval = _mm("delta_val.bin") if meta.get("has_delta") else \
+        np.empty(0, np.uint8)
+
+    def _extent(name, arr, need):
+        if arr is not None and arr.shape[0] < need:
+            errors.append(f"{name}: {arr.shape[0]} bytes "
+                          f"< committed {need}")
+
+    _extent("packed.bin", packed, n_rows * w2)
+    if name_off is not None:
+        _extent("names.bin", names, int(name_off[n_rows]))
+    if rowxz_off is not None:
+        _extent("rowxz.bin", rowxz, int(rowxz_off[n_rows]))
+
+    crc_file = p / "block_crc.npy"
+    scheme_ok = crc_file.is_file() and meta.get("crc") == CRC_SCHEME
+    crcs = (np.load(crc_file) if scheme_ok
+            else np.full(blocks.shape[0], -1, dtype=np.int64))
+
+    def _slice(arr, lo, hi, what, bi):
+        """Committed byte range, or None (recorded as an error) when
+        the file can't supply it."""
+        if arr is None or hi > arr.shape[0] or lo > hi:
+            errors.append(f"block {bi}: {what} range [{lo}, {hi}) "
+                          "unavailable")
+            return None
+        return np.ascontiguousarray(arr[lo:hi]).tobytes()
+
+    bad, unknown, checked = [], 0, 0
+    for bi in range(blocks.shape[0]):
+        row0, n, E, poff, voff = (int(x) for x in blocks[bi])
+        if row0 >= n_rows:
+            continue            # orphan of a crashed append
+        if row0 + n > n_rows:
+            # committed blocks are written whole before the meta
+            # commit; a block sticking past n_rows is structural
+            errors.append(f"block {bi}: rows [{row0}, {row0 + n}) "
+                          f"exceed committed n_rows {n_rows}")
+            continue
+        want = int(crcs[bi]) if bi < crcs.shape[0] else -1
+        if want == -1:
+            unknown += 1
+            continue
+        pieces = [_slice(packed, row0 * w2, (row0 + n) * w2,
+                         "packed", bi)]
+        if name_off is not None:
+            pieces.append(_slice(names, int(name_off[row0]),
+                                 int(name_off[row0 + n]), "names", bi))
+        else:
+            pieces.append(None)
+        pieces.append(
+            np.ascontiguousarray(valid[row0: row0 + n],
+                                 dtype=np.int64).tobytes()
+            if valid is not None else None)
+        if run_off is not None:
+            pieces.append(_slice(runs, int(run_off[row0]) * 8,
+                                 int(run_off[row0 + n]) * 8,
+                                 "gapruns", bi))
+        else:
+            pieces.append(None)
+        if exc_off is not None:
+            pieces.append(_slice(epos, int(exc_off[row0]) * 4,
+                                 int(exc_off[row0 + n]) * 4,
+                                 "exc_pos", bi))
+            pieces.append(_slice(echr, int(exc_off[row0]),
+                                 int(exc_off[row0 + n]), "exc_chr", bi))
+        else:
+            pieces += [None, None]
+        if rowxz_off is not None:
+            pieces.append(_slice(rowxz, int(rowxz_off[row0]),
+                                 int(rowxz_off[row0 + n]), "rowxz", bi))
+        if E > 0:
+            pieces.append(_slice(dpos, poff, poff + n * E * 2,
+                                 "delta_pos", bi))
+            pieces.append(_slice(dval, voff, voff + n * E,
+                                 "delta_val", bi))
+        checked += 1
+        if any(pc is None for pc in pieces):
+            bad.append(bi)      # a range we can't even read is corrupt
+        else:
+            crc = 0
+            for pc in pieces:
+                crc = zlib.crc32(pc, crc)
+            if crc != want:
+                bad.append(bi)
+        if progress is not None:
+            progress(bi + 1, blocks.shape[0])
+    return {"ok": not bad and not errors, "checked": checked,
+            "unknown": unknown, "bad_blocks": bad, "errors": errors}
+
+
 def peek_store_base(path) -> np.ndarray | None:
     """The store's delta base without opening the full store (engines
     need it before building device data), or None if the store carries
@@ -107,6 +341,401 @@ def peek_store_base(path) -> np.ndarray | None:
     if not base.is_file():
         return None
     return np.fromfile(base, dtype=np.uint8)
+
+
+# ----------------------------------------------------------------------
+# ingest
+
+
+@dataclass
+class IngestStats:
+    n_rows: int = 0
+    n_sites: int = 0
+    n_delta_blocks: int = 0
+    n_packed_blocks: int = 0
+    seconds: float = 0.0
+    bytes: int = 0
+
+
+def _digest_block_native(lib, raw, codes):
+    """(packed, valid, runs, run_counts, exc_pos, exc_chr, exc_counts)
+    in ONE native pass (the numpy pipeline in ingest makes ~8 passes
+    over the block)."""
+    import ctypes
+    n, L = codes.shape
+    w2 = (L + 1) // 2
+    raw = np.ascontiguousarray(raw)
+    codes = np.ascontiguousarray(codes)
+    packed = np.empty((n, w2), dtype=np.uint8)
+    valid = np.empty(n, dtype=np.int64)
+    run_counts = np.empty(n, dtype=np.int64)
+    exc_counts = np.empty(n, dtype=np.int64)
+    runs_cap, exc_cap = 8 * n + 64, 8 * n + 64
+    while True:
+        runs = np.empty((runs_cap, 2), dtype=np.uint32)
+        exc_pos = np.empty(exc_cap, dtype=np.uint32)
+        exc_chr = np.empty(exc_cap, dtype=np.uint8)
+        rc = lib.ufa_store_block(
+            raw.ctypes.data_as(ctypes.c_void_p),
+            codes.ctypes.data_as(ctypes.c_void_p), n, L,
+            DECODE_LUT.ctypes.data_as(ctypes.c_void_p),
+            packed.ctypes.data_as(ctypes.c_void_p),
+            valid.ctypes.data_as(ctypes.c_void_p),
+            runs.ctypes.data_as(ctypes.c_void_p), runs_cap,
+            run_counts.ctypes.data_as(ctypes.c_void_p),
+            exc_pos.ctypes.data_as(ctypes.c_void_p),
+            exc_chr.ctypes.data_as(ctypes.c_void_p), exc_cap,
+            exc_counts.ctypes.data_as(ctypes.c_void_p))
+        if rc == 0:
+            break
+        runs_cap *= 8                   # gap-heavy block: grow and retry
+        exc_cap *= 8
+    nr, ne = int(run_counts.sum()), int(exc_counts.sum())
+    return (packed, valid.astype(np.int32), runs[:nr], run_counts,
+            exc_pos[:ne], exc_chr[:ne], exc_counts)
+
+
+def _gap_runs(raw: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(runs (R, 2) uint32 [start, len] in row-major order,
+    counts (n,) int64 runs per row) for '-' characters in (n, L) raw."""
+    gaps = raw == ord("-")
+    if not gaps.any():
+        return (np.empty((0, 2), dtype=np.uint32),
+                np.zeros(raw.shape[0], dtype=np.int64))
+    g = gaps.astype(np.int8)
+    d_start = np.diff(g, axis=1, prepend=0)
+    d_end = np.diff(g, axis=1, append=0)
+    sr, sc = np.nonzero(d_start == 1)
+    er, ec = np.nonzero(d_end == -1)
+    # starts and ends pair up in row-major order by construction
+    runs = np.stack([sc, ec - sc + 1], axis=1).astype(np.uint32)
+    counts = np.bincount(sr, minlength=raw.shape[0]).astype(np.int64)
+    return runs, counts
+
+
+def _truncate_to_meta(outp: Path, prev: dict, frames: bool) -> None:
+    """Drop orphan TRAILING bytes a crashed earlier append may have
+    left past the committed meta's row count — without this, re-running
+    the append would interleave the orphans into the row space (the
+    binary sections are parsed purely by offset)."""
+    n = int(prev["n_rows"])
+    w2 = int(prev["w2"])
+    ends = {}
+    for name in ("name_offsets", "gaprun_offsets", "exc_offsets",
+                 "rowxz_offsets"):
+        p = outp / f"{name}.npy"
+        ends[name] = int(np.load(p)[n]) if p.is_file() else 0
+    blocks = np.load(outp / "blocks.npy")
+    pos_end = val_end = 0
+    for row0, nb, E, poff, voff in blocks:
+        if row0 >= n:
+            continue          # orphan block from a crashed append
+        if E > 0:
+            pos_end = max(pos_end, int(poff) + int(nb) * int(E) * 2)
+            val_end = max(val_end, int(voff) + int(nb) * int(E))
+    sizes = {"packed.bin": n * w2,
+             "names.bin": ends["name_offsets"],
+             "gapruns.bin": ends["gaprun_offsets"] * 8,
+             "exc_pos.bin": ends["exc_offsets"] * 4,
+             "exc_chr.bin": ends["exc_offsets"],
+             "delta_pos.bin": pos_end,
+             "delta_val.bin": val_end}
+    if frames:
+        sizes["rowxz.bin"] = ends["rowxz_offsets"]
+    for fname, size in sizes.items():
+        p = outp / fname
+        if p.is_file() and p.stat().st_size > size:
+            os.truncate(p, size)
+
+
+def ingest(paths: list[str], out: str, block: int = DEFAULT_BLOCK,
+           progress=None, frames: bool = False,
+           append: bool = False) -> IngestStats:
+    """One streaming pass: FASTA/xz database(s) -> store directory.
+
+    Rows are stored verbatim in input order (no QC — quality and name
+    filters stay scan-time decisions driven by valid.npy and names, so
+    one store serves every flag combination).  Unaligned input errors
+    exactly like the scan would (RefStreamer length check).
+
+    ``frames=True`` additionally pre-compresses every row as its own
+    xz dump frame (Python's lzma module, so it works where the native
+    library has no xz).  Off by default because the economics rarely
+    pay: frames are compressed for ALL n_rows at ingest, one xz stream
+    a row, while a scan's dump only needs its SURVIVORS, which the
+    batched writer compresses on demand (io/fasta._GENOME_FILTERS).
+    Opt in when the same store will be dump-scanned many times with
+    large survivor sets.
+
+    ``append=True`` extends an EXISTING store in place (the weekly
+    surveillance-drop workflow: no full re-ingest).  New rows delta
+    against the store's original base; the frames setting is inherited.
+    meta.json is rewritten LAST (atomically), and every section is
+    append-only or whole-array-rewritten-larger, so a crashed append
+    leaves the previous meta pointing at a fully valid prefix — the
+    store stays readable and the append can simply be re-run.
+    """
+    from ..engine.stream import RefStreamer
+    from ..io.fasta import read_fasta
+    from ..ops import host
+    from . import native
+
+    t0 = time.time()
+    outp = Path(out)
+    prev = None
+    if append:
+        if not is_store(out):
+            raise SystemExit(f"{out} is not an existing store "
+                             "(--append extends one)")
+        with open(outp / "meta.json") as fh:
+            prev = json.load(fh)
+    elif outp.exists():
+        raise SystemExit(f"{out} already exists; refusing to overwrite "
+                         "an existing store or directory")
+    else:
+        outp.mkdir(parents=True)
+
+    first = next(iter(read_fasta(paths[0])), None)
+    if first is None:
+        raise SystemExit(f"no sequences in {paths[0]}")
+    L = len(first.seq)
+    if prev is not None and L != int(prev["n_sites"]):
+        raise SystemExit(
+            f"cannot append {L}-site sequences to a "
+            f"{prev['n_sites']}-site store: all sequences must be "
+            "aligned")
+    w2 = (L + 1) // 2
+    if prev is not None:
+        frames = bool(prev.get("has_rowxz"))
+
+    if prev is not None:
+        _truncate_to_meta(outp, prev, frames)
+    mode = "ab" if prev is not None else "wb"
+    f_packed = open(outp / "packed.bin", mode)
+    f_names = open(outp / "names.bin", mode)
+    f_dpos = open(outp / "delta_pos.bin", mode)
+    f_dval = open(outp / "delta_val.bin", mode)
+    f_runs = open(outp / "gapruns.bin", mode)
+    f_epos = open(outp / "exc_pos.bin", mode)
+    f_echr = open(outp / "exc_chr.bin", mode)
+    f_rowxz = open(outp / "rowxz.bin", mode) if frames or prev is None \
+        else None
+
+    valid_parts: list[np.ndarray] = []
+    name_lens: list[np.ndarray] = []
+    run_counts: list[np.ndarray] = []
+    exc_counts: list[np.ndarray] = []
+    rowxz_lens: list[np.ndarray] = []
+    blocks: list[tuple[int, int, int, int, int]] = []
+    base: np.ndarray | None = None
+    pos_off = val_off = 0
+    n_rows = 0
+    stats = IngestStats(n_sites=L)
+    block_crcs: list[int] = []
+    if prev is not None:
+        n_rows = int(prev["n_rows"])
+        # drop orphan entries a crashed append may have saved past the
+        # committed meta (appended blocks always start at >= old n_rows)
+        blocks = [tuple(int(x) for x in b)
+                  for b in np.load(outp / "blocks.npy")
+                  if int(b[0]) < n_rows]
+        # per-block integrity CRCs (see verify): carry forward the
+        # committed prefix; blocks of a pre-checksum store — or of an
+        # older CRC composition — get the -1 "unknown" sentinel
+        # (verify reports, never recomputes — append must stay
+        # O(new rows))
+        if (outp / "block_crc.npy").is_file() \
+                and prev.get("crc") == CRC_SCHEME:
+            old_crc = np.load(outp / "block_crc.npy")
+            block_crcs = [int(c) for c in old_crc[: len(blocks)]]
+        if len(block_crcs) < len(blocks):
+            block_crcs += [-1] * (len(blocks) - len(block_crcs))
+        # "ab" position is only defined after the first write: size the
+        # existing delta sections directly
+        pos_off = os.path.getsize(outp / "delta_pos.bin")
+        val_off = os.path.getsize(outp / "delta_val.bin")
+        if (outp / "base.bin").is_file():
+            base = np.fromfile(outp / "base.bin", dtype=np.uint8)
+    n_rows0 = n_rows
+
+    # ref_ambiguity=1.0 -> min_valid 0: keep every record (no QC here)
+    streamer = RefStreamer(paths, L, block, ref_ambiguity=1.0)
+    # the one-pass block digest (csrc/host/fasta_io.cpp ufa_store_block),
+    # or None without the native library
+    digest_lib = native.get_lib()
+    frame_pool = None
+    for batch in streamer:
+        n = batch.n
+        codes = batch.codes[:n]
+        raw = batch.raw[:n]
+
+        if digest_lib is not None:
+            # one native pass: pack + valid + gap runs + exceptions
+            (packed, vcounts, runs, counts, epos, echr,
+             ecnts) = _digest_block_native(digest_lib, raw, codes)
+        else:
+            packed = host.pack_codes(codes)
+            vcounts = np.count_nonzero(codes, axis=1).astype(np.int32)
+            runs, counts = _gap_runs(raw)
+            decoded = DECODE_LUT[codes]
+            decoded[raw == ord("-")] = ord("-")
+            er, ec = np.nonzero(decoded != raw)
+            epos, echr = ec.astype(np.uint32), raw[er, ec]
+            ecnts = np.bincount(er, minlength=n).astype(np.int64)
+        # block CRC (verify() recomputes the same composition, in this
+        # order: packed, names, valid-as-int64, gapruns, exc_pos,
+        # exc_chr, [rowxz frames], [delta pos, delta val]) — CRC_SCHEME
+        packed_bytes = packed.tobytes()
+        f_packed.write(packed_bytes)
+        crc = zlib.crc32(packed_bytes)
+        valid_parts.append(vcounts)
+        names_bytes = b"".join(nm.encode("utf-8") for nm in batch.names)
+        name_lens.append(np.array(
+            [len(nm.encode("utf-8")) for nm in batch.names],
+            dtype=np.int64))
+        f_names.write(names_bytes)
+        crc = zlib.crc32(names_bytes, crc)
+        crc = zlib.crc32(np.ascontiguousarray(
+            vcounts, dtype=np.int64).tobytes(), crc)
+        runs_bytes = np.ascontiguousarray(runs).tobytes()
+        f_runs.write(runs_bytes)
+        crc = zlib.crc32(runs_bytes, crc)
+        run_counts.append(counts)
+        epos_bytes = np.ascontiguousarray(epos).tobytes()
+        echr_bytes = np.ascontiguousarray(echr).tobytes()
+        f_epos.write(epos_bytes)
+        f_echr.write(echr_bytes)
+        crc = zlib.crc32(echr_bytes, zlib.crc32(epos_bytes, crc))
+        exc_counts.append(ecnts)
+
+        # pre-compressed dump frames (see layout comment): preset 0 is
+        # a one-time cost paid here so scan-time dumps are byte copies.
+        # LZMACompressor releases the GIL, so a thread pool compresses
+        # the block's rows concurrently (map preserves row order);
+        # ~linear speedup on multicore ingest hosts, harmless on one
+        if frames:
+            import lzma
+            if frame_pool is None:
+                import concurrent.futures as cf
+                frame_pool = cf.ThreadPoolExecutor(
+                    max_workers=min(8, os.cpu_count() or 1))
+            row_frames = list(frame_pool.map(
+                lambda i: lzma.compress(
+                    b">" + batch.names[i].encode("utf-8") + b"\n"
+                    + raw[i].tobytes() + b"\n",
+                    format=lzma.FORMAT_XZ, preset=0), range(n)))
+            xz_lens = np.empty(n, dtype=np.int64)
+            for i, frame in enumerate(row_frames):
+                f_rowxz.write(frame)
+                crc = zlib.crc32(frame, crc)
+                xz_lens[i] = len(frame)
+            rowxz_lens.append(xz_lens)
+
+        # sparse delta vs the first block's majority (host.majority_code
+        # docstring: any base is exact; a same-population base keeps the
+        # diff lists small)
+        if base is None:
+            base = host.majority_code(codes)
+        enc = host.delta_encode(codes, np.ones(n, dtype=bool), base)
+        if enc is not None and enc[0].dtype != np.uint16:
+            enc = None        # huge-L uint32 positions: store packed-only
+        if enc is not None:
+            pos, val = enc
+            E = pos.shape[1]
+            pos_bytes = np.ascontiguousarray(pos).tobytes()
+            val_bytes = np.ascontiguousarray(val).tobytes()
+            f_dpos.write(pos_bytes)
+            f_dval.write(val_bytes)
+            crc = zlib.crc32(val_bytes, zlib.crc32(pos_bytes, crc))
+            blocks.append((n_rows, n, E, pos_off, val_off))
+            pos_off += pos.nbytes
+            val_off += val.nbytes
+            stats.n_delta_blocks += 1
+        else:
+            blocks.append((n_rows, n, 0, 0, 0))
+            stats.n_packed_blocks += 1
+        block_crcs.append(crc)
+        n_rows += n
+        if progress is not None:
+            progress(n_rows - n_rows0, time.time() - t0)
+
+    if frame_pool is not None:
+        frame_pool.shutdown()
+    for fh in (f_packed, f_names, f_dpos, f_dval, f_runs, f_epos,
+               f_echr, f_rowxz):
+        if fh is not None:
+            fh.close()
+
+    def _save_np(name, arr):
+        """Atomic .npy rewrite: an in-place np.save interrupted
+        mid-write would corrupt an EXISTING array the old meta still
+        points at."""
+        tmp = outp / (name + ".tmp")
+        np.save(tmp, arr)
+        os.replace(str(tmp) + ".npy", outp / name)
+
+    def _offsets(parts, name):
+        """Cumulative ends over old + new rows: the existing ends array
+        (clipped to the committed row count — a crashed append may have
+        saved longer arrays than its meta) extended by this run's
+        per-row lengths."""
+        head = (np.load(outp / name)[: n_rows0 + 1] if prev is not None
+                else np.zeros(1, dtype=np.int64))
+        if not parts:
+            return head
+        tail = np.cumsum(np.concatenate(parts),
+                         dtype=np.int64) + int(head[-1])
+        return np.concatenate([head, tail])
+
+    new_valid = (np.concatenate(valid_parts) if valid_parts
+                 else np.empty(0, np.int32))
+    if prev is not None:
+        new_valid = np.concatenate([np.load(outp / "valid.npy")[:n_rows0],
+                                    new_valid])
+    _save_np("valid.npy", new_valid)
+    _save_np("name_offsets.npy", _offsets(name_lens, "name_offsets.npy"))
+    _save_np("gaprun_offsets.npy",
+             _offsets(run_counts, "gaprun_offsets.npy"))
+    _save_np("exc_offsets.npy", _offsets(exc_counts, "exc_offsets.npy"))
+    if frames:
+        _save_np("rowxz_offsets.npy",
+                 _offsets(rowxz_lens, "rowxz_offsets.npy"))
+    elif prev is None:
+        os.unlink(outp / "rowxz.bin")
+    _save_np("blocks.npy",
+             np.asarray(blocks, dtype=np.int64).reshape(-1, 5))
+    _save_np("block_crc.npy", np.asarray(block_crcs, dtype=np.int64))
+    has_delta = stats.n_delta_blocks > 0 or bool(
+        prev is not None and prev.get("has_delta"))
+    if stats.n_delta_blocks and base is not None \
+            and not (outp / "base.bin").is_file():
+        # never rewrite an existing base: appended deltas are against
+        # it bit-for-bit, and an interrupted rewrite would corrupt a
+        # section the old meta already points at
+        base.tofile(outp / "base.bin")
+
+    meta = {"format": FORMAT, "version": VERSION, "crc": CRC_SCHEME,
+            "n_rows": n_rows,
+            "n_sites": L, "w2": w2,
+            "block": int(prev["block"]) if prev is not None else block,
+            "has_delta": has_delta,
+            "has_rowxz": frames,
+            "sources": (list(prev["sources"]) if prev is not None else [])
+            + [str(p) for p in paths]}
+    # the commit point: a crash anywhere above leaves the OLD meta
+    # describing a valid prefix of every (append-only) section
+    tmp = outp / "meta.json.tmp"
+    with open(tmp, "w") as fh:
+        json.dump(meta, fh, indent=1)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, outp / "meta.json")
+
+    stats.n_rows = n_rows - n_rows0      # rows ingested by THIS run
+    stats.seconds = time.time() - t0
+    stats.bytes = sum(
+        (outp / f).stat().st_size for f in os.listdir(outp))
+    return stats
 
 
 # ----------------------------------------------------------------------
