@@ -56,7 +56,23 @@ Phases (any failure exits non-zero, without the final result line):
      (the store grows a tier) and rows that join; on the first 2048
      genomes byte-equal under `--device cuda` and `--device cpu`; the
      distance product (torch._int_mm) timed at its main-path shape
-     against its int8 bound.
+     against its int8 bound;
+ 11. the mesh and several processes, every shard on cuda:0 (the mesh's
+     device lookup, parallel/mesh.local_devices, names it n times): at
+     L=29903, Q=64 (phase 4's queries), B=4096, k=50, over 4 batches of
+     phase 4's genomes (delta and packed payloads), full mode and
+     --acgt, at (db, site) = (4,1), (2,2), (1,4), the sharded step's
+     state and is_best bit-equal to scan_step_delta / scan_step_packed
+     on one device at every batch, and the survivor path (prune_acc,
+     prune_acc_delta, flush) equal to the dense state; a sharded delta
+     step timed at each shape beside the one-device step (the shards
+     share one card and run one after another: the mesh's overhead);
+     `run_nearest(n_devices=4, site_shards=2)` on phase 4's genomes
+     (full mode, prune on) and `nearest --num-hosts 2` through the
+     command line (two child processes on the card, a gloo rendezvous on
+     a free port, a timeout each) on phase 10's store split by rows and
+     on phase 4's genomes as two FASTA files: each CSV byte-equal to
+     phase 4's.
 Phase 2 holds delta_rebuild at the main path's batch (E=128, markers on
 every row) and on synthetic entries at E = 1024 and 4096, with int32
 positions and at the ragged width w = L; each shape is also timed inside
@@ -74,9 +90,12 @@ kernel's launch count comes from the path that runs it: the nearest
 kernels from phase 4 (full-mode ones from its full-mode pair, the
 --acgt ones from its --acgt pair; delta_rebuild from phase 4, phase
 8's `ball` run and phase 10's three `cluster` runs on the card
-together), `gotoh_score` from phase 6,
-`gotoh_forward` from phase 7, every count set to 0 just before its
-runs.  No command runs `pair_counters` (nor, in the JAX package, the
+together), `gotoh_score` from phase 6, `gotoh_forward` from phase 7,
+every count set to 0 just before its runs; to the counts of
+delta_rebuild, score_counters, amb_corr and acgt_counters phase 11 adds
+the launches of its sharded calls (the mesh steps, the survivor ops
+and the `--devices 4 --site-shards 2` run, counted around those calls
+only; the --num-hosts children's launches are their own processes').  No command runs `pair_counters` (nor, in the JAX package, the
 kernel it replaces): its count is its phase-2 launches.
 The line before the last is the card's `name, power.limit`; the line
 before it the kernels' JSON record (times at Q=64 and the first Gotoh
@@ -1487,8 +1506,242 @@ def finish_cpu_subset(work: dict) -> None:
 
 
 
+# ----------------------------------------------------------------------
+# the mesh and several processes
+
+
+MESH_KERNELS = ("delta_rebuild", "score_counters", "amb_corr",
+                "acgt_counters")
+MESH_SHAPES = ((4, 1), (2, 2), (1, 4))
+
+
+class LaunchTally:
+    """Launches of MESH_KERNELS made inside `counted` calls only."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(MESH_KERNELS, 0)
+
+    def counted(self, fn, *args):
+        before = {n: KERNELS[n]["wrapper"].launches for n in MESH_KERNELS}
+        out = fn(*args)
+        for n in MESH_KERNELS:
+            self.counts[n] += KERNELS[n]["wrapper"].launches - before[n]
+        return out
+
+
+@contextlib.contextmanager
+def one_card_mesh():
+    """Inside the block every shard of a mesh names cuda:0 (the card is
+    one), where the mesh would take cuda:0 .. cuda:n-1."""
+    from uvaia_tpu_torch.parallel import mesh as pmesh
+    orig = pmesh.local_devices
+    pmesh.local_devices = lambda kind, n: [torch.device("cuda", 0)] * n
+    try:
+        yield
+    finally:
+        pmesh.local_devices = orig
+
+
+def mesh_batches(dev, n_batches: int, codes: np.ndarray, base):
+    """Phase 4's genomes as the step payloads: even batches as sparse
+    deltas, odd ones packed (batch 3 holds phase 4's far row, which no
+    delta bucket takes)."""
+    out = []
+    ok = np.ones(BATCH, dtype=bool)
+    for i in range(n_batches):
+        c = codes[i * BATCH:(i + 1) * BATCH]
+        enc = host.delta_encode(c, ok, base) if i % 2 == 0 else None
+        if i % 2 == 0 and enc is None:
+            raise AssertionError(f"mesh batch {i} did not fit the delta "
+                                 "buckets")
+        payload = (("delta", *(torch.from_numpy(x).to(dev) for x in enc))
+                   if enc is not None else
+                   ("packed", torch.from_numpy(host.pack_codes(c)).to(dev)))
+        ridx = torch.arange(i * BATCH, (i + 1) * BATCH, dtype=torch.int32,
+                            device=dev)
+        out.append((payload, ridx))
+    return out
+
+
+def mesh_steps(dev, card: str, tally: LaunchTally, n_batches: int,
+               k: int) -> dict:
+    """The sharded step and the survivor path at each MESH_SHAPES shape,
+    full mode and --acgt, on phase 4's genomes: state and is_best
+    bit-equal to the one-device steps at every batch, and the survivor
+    path's final state to the dense one; then a step timed at each shape
+    beside the one-device step.  Returns {label: ms}."""
+    from uvaia_tpu_torch.parallel import mesh as pmesh
+    codes = LUT[read_letters(WORK / "s_db.fa", n_batches * BATCH)]
+    ok_d = torch.ones(BATCH, dtype=torch.bool, device=dev)
+    times = {}
+    for acgt in (False, True):
+        pack = build_query_pack(str(WORK / "s_q.fa"), acgt=acgt)
+        qd_1 = scan.build_device_data(pack, k=k, device=dev)
+        batches = mesh_batches(dev, n_batches, codes,
+                               qd_1.delta_base.cpu().numpy())
+        mode = " --acgt" if acgt else ""
+        for n_db, n_site in MESH_SHAPES:
+            mesh = pmesh.make_mesh(n_db, n_site)
+            qd = scan.build_device_data(pack, k=k, device=dev,
+                                        site_shards=n_site)
+            scan.build_prune_data(qd, pack)
+            if not acgt and qd.amb_sites is None:
+                raise AssertionError("the mesh queries have no ambiguity "
+                                     "columns")
+            step = {"delta": pmesh.make_sharded_scan_step(qd, mesh, True),
+                    "packed": pmesh.make_sharded_scan_step(qd, mesh)}
+            one = {"delta": scan.scan_step_delta,
+                   "packed": scan.scan_step_packed}
+            cap = 2 * (BATCH // n_db)
+            init, acc, acc_d, flush = pmesh.make_sharded_survivor_ops(
+                qd, mesh, cap)
+            bufs = init()
+            st_s = scan.init_state(pack.n_query, k, device=dev)
+            st_1 = scan.init_state(pack.n_query, k, device=dev)
+            st_v = scan.init_state(pack.n_query, k, device=dev)
+            for i, ((kind, *pl), ridx) in enumerate(batches):
+                st_s, fl_s = tally.counted(step[kind], st_s, *pl, ok_d, ridx)
+                st_1, fl_1 = one[kind](qd_1, st_1, *pl, ok_d, i * BATCH)
+                a = acc_d if kind == "delta" else acc
+                _, bufs = tally.counted(a, st_v, bufs, *pl, ok_d, ridx)
+                if not (torch.equal(fl_s, fl_1) and torch.equal(st_s[0],
+                        st_1[0]) and torch.equal(st_s[1], st_1[1])):
+                    raise AssertionError(f"mesh {n_db}x{n_site}{mode}: the "
+                                         f"sharded {kind} step differs at "
+                                         f"batch {i}")
+                if int(bufs.fill().max()) + BATCH // n_db > cap:
+                    st_v, _, bufs = tally.counted(flush, st_v, bufs)
+            st_v, _, bufs = tally.counted(flush, st_v, bufs)
+            if not (torch.equal(st_v[0], st_1[0])
+                    and torch.equal(st_v[1], st_1[1])):
+                raise AssertionError(f"mesh {n_db}x{n_site}{mode}: the "
+                                     "survivor path's state differs")
+            pos, val = batches[0][0][1:]
+            base = [n_batches * BATCH]
+
+            def sharded():
+                base[0] += BATCH
+                ridx = torch.arange(base[0], base[0] + BATCH,
+                                    dtype=torch.int32, device=dev)
+                holder[0], _ = step["delta"](holder[0], pos, val, ok_d,
+                                             ridx)
+            holder = [st_s]
+            ms = timed_ms(sharded, reps=5)
+            times[f"{n_db}x{n_site}{mode}"] = ms
+            log(f"  mesh {n_db}x{n_site}{mode}: {n_batches} batches "
+                f"(delta, packed) bit-equal to the one-device steps, "
+                f"survivor path equal to the dense state; sharded delta "
+                f"step {ms:.3f} ms (L={L_SITES}, Q={pack.n_query}, "
+                f"B={BATCH}, k={k}; the shards share one card and run one "
+                f"after another: the mesh's overhead, not a speed-up) "
+                f"({card})")
+        holder = [st_1]
+
+        def single():
+            base[0] += BATCH
+            holder[0], _ = scan.scan_step_delta(qd_1, holder[0], pos, val,
+                                                ok_d, base[0])
+        ms = timed_ms(single, reps=5)
+        times[f"one device{mode}"] = ms
+        log(f"  one-device scan_step_delta{mode} on the same batch: "
+            f"{ms:.3f} ms ({card})")
+    return times
+
+
+def run_multihost_cli(dev, argv: list, n: int = 2, timeout: int = 300):
+    """`nearest ... --num-hosts n` as n child processes on the card, a
+    gloo rendezvous on a free localhost port; returns the wall time."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "uvaia_tpu_torch", *argv, "--device",
+           str(dev), "--num-hosts", str(n), "--coordinator",
+           f"localhost:{port}"]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--host-id", str(i)], cwd=ROOT,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for i in range(n)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"--num-hosts {n}: process {i} exited "
+                                 f"{p.returncode}:\n{o[-3000:]}")
+    return wall
+
+
+def split_fasta(src: Path, first: Path, rest: Path, n_first: int) -> None:
+    """A one-line-a-record FASTA file as two: its first n_first records,
+    then the others."""
+    with open(src, "rb") as f, open(first, "wb") as a, open(rest, "wb") as b:
+        for i, line in enumerate(f):
+            (a if i < 2 * n_first else b).write(line)
+
+
+def phase_mesh(dev, card: str, n: int) -> dict:
+    """Phase 11: the mesh step by step, `nearest --devices 4
+    --site-shards 2` end to end, and `nearest --num-hosts 2` from the
+    store and from two FASTA files; returns the launches of MESH_KERNELS
+    made by the sharded path (counted around its calls)."""
+    tally = LaunchTally()
+    want = (WORK / "s_prune.csv.xz").read_bytes()
+    out = WORK / "m_mesh"
+    with one_card_mesh():
+        with score_kernels.full_float32_matmuls():
+            mesh_steps(dev, card, tally, 4, 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tally.counted(run_nearest, [str(WORK / "s_db.fa")],
+                      str(WORK / "s_q.fa"),
+                      NearestConfig(nbest=100, pool=BATCH, output=str(out),
+                                    n_devices=4, site_shards=2,
+                                    device=str(dev)))
+        wall = time.perf_counter() - t0
+    if (WORK / "m_mesh.csv.xz").read_bytes() != want:
+        raise AssertionError("nearest --devices 4 --site-shards 2: the CSV "
+                             "differs from phase 4's")
+    log(f"  nearest --devices 4 --site-shards 2 (one card, 2x2 shards): "
+        f"{n} genomes, Q=64, nbest=100, pool={BATCH}, prune on: "
+        f"{wall:.3f} s wall, {n / wall:,.1f} genomes/s; CSV byte-equal to "
+        f"phase 4's ({card})")
+    common = [str(WORK / "s_q.fa"), "-n", "100", "-p", str(BATCH)]
+    wall = run_multihost_cli(dev, ["nearest", "-r", str(WORK / "s_db.uvst"),
+                                   *common, "-o", str(WORK / "m_hosts_st")])
+    if (WORK / "m_hosts_st.csv.xz").read_bytes() != want:
+        raise AssertionError("nearest --num-hosts 2 from the store: the "
+                             "merged CSV differs from the one-process CSV")
+    log(f"  nearest --num-hosts 2, phase 10's store split by rows (two "
+        f"processes on one card): {wall:.3f} s wall from the start of both, "
+        f"merged CSV byte-equal to the one-process CSV ({card})")
+    a, b = WORK / "m_db_a.fa", WORK / "m_db_b.fa"
+    split_fasta(WORK / "s_db.fa", a, b, n // 2)
+    wall = run_multihost_cli(dev, ["nearest", "-r", str(a), "-r", str(b),
+                                   *common, "-o", str(WORK / "m_hosts_fa")])
+    if (WORK / "m_hosts_fa.csv.xz").read_bytes() != want:
+        raise AssertionError("nearest --num-hosts 2 on two FASTA files: "
+                             "the merged CSV differs from the one-process "
+                             "CSV")
+    log(f"  nearest --num-hosts 2, phase 4's genomes as two FASTA files "
+        f"split by files: {wall:.3f} s wall from the start of both, merged "
+        f"CSV byte-equal to the one-process CSV ({card})")
+    missing = [k for k, v in tally.counts.items() if v == 0]
+    log(f"  launches of the sharded path over phase 11: {tally.counts}")
+    if missing:
+        raise AssertionError(f"kernels never launched on the sharded "
+                             f"path: {missing}")
+    return tally.counts
+
+
 def run(dev: torch.device, card: str) -> dict:
-    """Phases 1-10 on `dev`; returns the kernels' JSON records."""
+    """Phases 1-11 on `dev`; returns the kernels' JSON records."""
     WORK.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(2024)
     records = {name: dict(name=name, route="cuda", source=w["source"],
@@ -1547,6 +1800,11 @@ def run(dev: torch.device, card: str) -> dict:
         records["delta_rebuild"]["launches"] += phase_cluster(dev, card,
                                                               16384)
         lap("phase 10")
+        log("phase 11: the mesh step by step, nearest --devices 4 "
+            "--site-shards 2, nearest --num-hosts 2")
+        for name, c in phase_mesh(dev, card, 16384).items():
+            records[name]["launches"] += c
+        lap("phase 11")
     finally:
         if work is not None and work["proc"].poll() is None:
             work["proc"].kill()

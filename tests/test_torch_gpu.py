@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, against their plain PyTorch
-versions, and `nearest` (full mode and --acgt), `align` and `cluster`
-on the card against the same runs on the CPU.
+versions, and `nearest` (full mode and --acgt, on one device and over a
+mesh of shards that share the card), `align` and `cluster` on the card
+against the same runs on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no jax, so it also runs where jax is not installed, without
@@ -20,6 +21,7 @@ from uvaia_tpu_torch.engine import align, cluster, nearest
 from uvaia_tpu_torch.engine.query import QueryPack
 from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
 from uvaia_tpu_torch.ops import host, recon, scan, score_kernels as sk
+from uvaia_tpu_torch.parallel import mesh as pmesh
 
 import torch_cases
 
@@ -596,3 +598,62 @@ def test_gpu_cluster_matches_cpu(cuda_device, tmp_path, monkeypatch):
                 distance=4, pool=48, snps=2, device=dev, output=dev))
         for ext in (".csv.xz", ".aln.xz"):
             assert filecmp.cmp("cuda" + ext, "cpu" + ext, shallow=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acgt", [False, True])
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_gpu_sharded_steps_match_one_device(cuda_device, monkeypatch, shape,
+                                            acgt):
+    """A mesh of shards that all name cuda:0: the sharded step (packed
+    and delta batches) gives the one-device steps' state and flags, and
+    the survivor path (prune_acc, prune_acc_delta, flush) the dense
+    state, through the kernels."""
+    monkeypatch.setattr(pmesh, "local_devices",
+                        lambda kind, n: [torch.device("cuda", 0)] * n)
+    rng = np.random.default_rng(11 + shape[1] + 2 * acgt)
+    L, Q, B, k = 2501, 7, 64, 5
+    pack = _pack(rng, Q, L, acgt=acgt)
+    m = pmesh.make_mesh(*shape)
+    qd_s = scan.build_device_data(pack, k=k, device=cuda_device,
+                                  site_shards=shape[1])
+    qd_1 = scan.build_device_data(pack, k=k, device=cuda_device)
+    scan.build_prune_data(qd_s, pack)
+    assert acgt or qd_s.amb_sites is not None
+    base = qd_s.delta_base.cpu().numpy()
+    step = pmesh.make_sharded_scan_step(qd_s, m)
+    step_d = pmesh.make_sharded_scan_step(qd_s, m, delta=True)
+    cap = 2 * (B // shape[0])
+    init, acc, acc_d, flush = pmesh.make_sharded_survivor_ops(qd_s, m, cap)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
+    st_s = scan.init_state(Q, k, device=cuda_device)
+    st_1 = scan.init_state(Q, k, device=cuda_device)
+    st_v = scan.init_state(Q, k, device=cuda_device)
+    bufs = init()
+    counters = sk.acgt_counters if acgt else sk.score_counters
+    before = (counters.launches, recon.delta_rebuild.launches)
+    ok = np.ones(B, dtype=bool)
+    with sk.full_float32_matmuls():
+        for i in range(4):
+            codes = _codes(rng, B, L, 0.02)
+            ridx = t(i * B + np.arange(B, dtype=np.int32))
+            if i % 2:
+                pos, val = (t(x) for x in host.delta_encode(codes, ok, base))
+                st_s, fl_s = step_d(st_s, pos, val, t(ok), ridx)
+                st_1, fl_1 = scan.scan_step_delta(qd_1, st_1, pos, val,
+                                                  t(ok), i * B)
+                _, bufs = acc_d(st_v, bufs, pos, val, t(ok), ridx)
+            else:
+                packed = t(host.pack_codes(codes))
+                st_s, fl_s = step(st_s, packed, t(ok), ridx)
+                st_1, fl_1 = scan.scan_step_packed(qd_1, st_1, packed,
+                                                   t(ok), i * B)
+                _, bufs = acc(st_v, bufs, packed, t(ok), ridx)
+            _equal(fl_s, fl_1)
+            _equal(st_s, st_1)
+            if int(bufs.fill().max()) + B // shape[0] > cap:
+                st_v, _, bufs = flush(st_v, bufs)
+        st_v, _, bufs = flush(st_v, bufs)
+    _equal(st_v, st_1)
+    assert counters.launches > before[0]
+    assert recon.delta_rebuild.launches > before[1]

@@ -192,13 +192,21 @@ def test_port_checkpoint_resumes_in_port(tmp_path, monkeypatch):
     assert filecmp.cmp("full.csv.xz", "part.csv.xz", shallow=False)
 
 
-@pytest.mark.parametrize("extra", [
-    ["--devices", "2"], ["--site-shards", "2"], ["--num-hosts", "2"],
-    ["--device", "cuda"], ["--acgt", "--device", "cuda"]])
+@pytest.mark.parametrize("extra,n_cuda", [
+    (["--devices", "4", "--site-shards", "3"], 0),
+    (["--device", "cuda", "--devices", "2"], 1),
+    (["--num-hosts", "2"], 0),
+    (["--device", "cuda"], 0), (["--acgt", "--device", "cuda"], 0)])
 def test_cli_refuses_unported_and_missing_gpu(tmp_path, monkeypatch,
-                                              extra):
+                                              extra, n_cuda):
+    """Refusals uvaia_tpu makes too: a --site-shards that does not divide
+    --devices, a CUDA mesh larger than the visible cards (one card
+    visible), --num-hosts > 1 without --coordinator; and --device cuda
+    without a GPU."""
     _files(tmp_path, monkeypatch, nr=10, L=200)
-    monkeypatch.setattr(pnearest.torch.cuda, "is_available", lambda: False)
+    cuda = pnearest.torch.cuda
+    monkeypatch.setattr(cuda, "is_available", lambda: n_cuda > 0)
+    monkeypatch.setattr(cuda, "device_count", lambda: n_cuda)
     argv = ["nearest", "-r", "db.fa", "q.fa", "-o", "x"]
     if "--device" not in extra:
         argv += ["--device", "cpu"]

@@ -1,8 +1,9 @@
 """The port's path needs no jax and nothing of the JAX package: in a
 process where importing jax, jaxlib or any `uvaia_tpu` module raises,
 the package imports, `python -m uvaia_tpu_torch nearest --device cpu
---keep_resolved` (in full mode and with --acgt), `python -m
-uvaia_tpu_torch align --device cpu`, the `ball` and `legacy` commands,
+--keep_resolved` (in full mode and with --acgt), sharded over a 2 x 2
+CPU mesh (`--devices 4 --site-shards 2`) and with `--num-hosts 1`,
+`python -m uvaia_tpu_torch align --device cpu`, the `ball` and `legacy` commands,
 `ingest`, `info --verify` and `cluster` (from the store it wrote and
 from the FASTA, with the same bytes) run to exit 0, and chip_smoke
 imports; and no source file of
@@ -47,6 +48,11 @@ for argv in (["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
              ["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
               "--keep_resolved", "--acgt", "--device", "cpu", "-o",
               "nojax_acgt"],
+             ["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
+              "--devices", "4", "--site-shards", "2", "--device", "cpu",
+              "-o", "nojax_mesh"],
+             ["nearest", "-r", "db.fa", "q.fa", "-n", "3", "-p", "8",
+              "--num-hosts", "1", "--device", "cpu", "-o", "nojax_hosts"],
              ["align", "-r", "ref.fa", "q_al.fa", "--device", "cpu", "-o",
               "nojax"],
              ["ball", "-r", "db.fa", "q.fa", "-d", "20", "-p", "8",
@@ -97,6 +103,9 @@ def test_port_runs_without_jax(tmp_path):
     assert (tmp_path / "nojax.csv.xz").exists()
     assert (tmp_path / "nojax_acgt.csv.xz").exists()
     assert "Considering ACGT differences only" in r.stderr
+    assert "Sharded scan over mesh (db=2, site=2)" in r.stderr
+    assert (tmp_path / "nojax_mesh.csv.xz").read_bytes() == \
+        (tmp_path / "nojax_hosts.csv.xz").read_bytes()
     assert "Total: 3 read, 3 aligned" in r.stderr
     assert (tmp_path / "nojax.aln.xz").exists()
     assert "Radius search: 3 queries, radius 20" in r.stderr

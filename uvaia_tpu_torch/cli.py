@@ -3,10 +3,10 @@ nearest|align|ball|cluster|legacy|ingest|info``.
 
 The flags are uvaia_tpu's own (the port's copies of the subcommand
 parsers of ``uvaia_tpu/cli/main.py``), plus ``--device {cuda,cpu}`` on
-the five tools; ``nearest`` runs in full mode and with ``--acgt``.
-Options whose paths are not ported yet (``--devices > 1``,
-``--site-shards > 1``, ``--num-hosts > 1``) exit with an error instead
-of running elsewhere.  ``ingest`` writes the same store directory as
+the five tools; ``nearest`` runs in full mode and with ``--acgt``, on
+one device, sharded over several (``--devices``, ``--site-shards``), or
+in several processes that merge their results (``--num-hosts``,
+``--host-id``, ``--coordinator``).  ``ingest`` writes the same store directory as
 ``uvaia_tpu ingest``, and ``info`` reads either package's stores.
 Exit codes are uvaia_tpu's: 2 for a file that cannot be opened or
 written, 1 for ``info --verify`` on a corrupt store, 130 on interrupt,
@@ -99,18 +99,28 @@ def _add_nearest(sub):
     p.add_argument("-o", "--output", default=None,
                    help="prefix of output alignment and csv")
     p.add_argument("--devices", type=int, default=None,
-                   help="shard the scan over this many devices")
+                   help="shard the scan over this many devices of the "
+                        "--device type, driven by this one process (cuda: "
+                        "cuda:0 .. cuda:N-1; cpu: N shards on the CPU); "
+                        "each scores its share of every batch, and the "
+                        "top-k candidates are merged on the first")
     p.add_argument("--site-shards", type=int, default=1,
-                   help="additionally shard the alignment-site axis over "
-                        "this many of the devices (devices = db x site)")
+                   help="additionally split the alignment sites over this "
+                        "many of the devices (devices = db x site); the "
+                        "partial counts are summed")
     p.add_argument("--num-hosts", type=int, default=1,
-                   help="multi-host scan: total number of host processes "
-                        "(each scans a contiguous file range; top-k merged "
-                        "over DCN at end of scan)")
+                   help="multi-process scan: total number of processes, "
+                        "started once each with its --host-id (each scans "
+                        "a contiguous file range, or row range of ingested "
+                        "stores; the top-k states are gathered over a "
+                        "torch.distributed gloo group at the end and "
+                        "process 0 writes the CSV)")
     p.add_argument("--host-id", type=int, default=0,
                    help="this process's id in [0, num-hosts)")
     p.add_argument("--coordinator", default=None,
-                   help="jax.distributed coordinator address host:port")
+                   help="host:port where process 0 listens for the gloo "
+                        "group's rendezvous (same value in every process; "
+                        "required with --num-hosts > 1)")
     p.add_argument("--checkpoint", default=None,
                    help="path for periodic scan checkpoints (resume-able)")
     p.add_argument("--checkpoint_every", type=float, default=60.0,
@@ -431,10 +441,8 @@ def _dispatch(args) -> int:
             ref_ambiguity=args.ref_ambiguity, output=args.output,
             partial_rule=args.partial_rule, device=args.device))
         return 0
-    from .engine.nearest import NOT_PORTED, NearestConfig, run_nearest
-    if args.num_hosts > 1:
-        raise SystemExit(f"--num-hosts {args.num_hosts} is {NOT_PORTED}")
-    run_nearest(args.reference, args.fasta, NearestConfig(
+    from .engine.nearest import NearestConfig, run_nearest
+    cfg = NearestConfig(
         nbest=args.nbest, trim=args.trim, acgt=args.acgt,
         keep_resolved=args.keep_resolved, exclude_self=args.exclude_self,
         query_ambiguity=args.query_ambiguity,
@@ -442,5 +450,12 @@ def _dispatch(args) -> int:
         output=args.output, n_devices=args.devices,
         site_shards=args.site_shards, checkpoint=args.checkpoint,
         checkpoint_every=args.checkpoint_every, prune=not args.no_prune,
-        codec=args.codec, device=args.device))
+        codec=args.codec, device=args.device)
+    if args.num_hosts > 1:
+        from .parallel.multihost import run_nearest_multihost
+        run_nearest_multihost(args.reference, args.fasta, cfg,
+                              args.num_hosts, args.host_id,
+                              coordinator=args.coordinator)
+    else:
+        run_nearest(args.reference, args.fasta, cfg)
     return 0

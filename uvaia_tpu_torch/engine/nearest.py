@@ -1,6 +1,9 @@
 """Streaming exact nearest-neighbour search (``uvaia nearest``) on
-PyTorch — the counterpart of ``uvaia_tpu/engine/nearest.py`` for one
-device, full mode or --acgt, with the prune prefilter on or off.
+PyTorch — the counterpart of ``uvaia_tpu/engine/nearest.py``: full mode
+or --acgt, the prune prefilter on or off, on one device or sharded over
+a (db, site) mesh of devices (``n_devices``, ``site_shards``;
+parallel/mesh.py).  Several processes, each scanning its share, are
+parallel/multihost.py's.
 
 Read queries -> QC -> site classes -> stream the database in batches
 (sparse-delta or 4-bit packed uploads) -> rebuild the codes on the
@@ -31,6 +34,7 @@ from ..io.fasta import WRITE_CODEC_SUFFIX, make_fasta_writer
 from ..ops import scan
 from ..ops.host import IDX_SENTINEL
 from ..ops.score_kernels import full_float32_matmuls
+from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
 from ..utils.observe import Chronometer, maybe_profile
 from .query import QueryPack, build_query_pack, log
@@ -42,9 +46,6 @@ CSV_HEADER_FULL = ("query,reference,rank,ACGT_matches,text_matches,"
 CSV_HEADER_ACGT = ("query,reference,rank,ACGT_matches,"
                    "valid_ACGT_comparisons,ACGT_matches_unique,"
                    "valid_ref_sites,dist_consensus,dist_unique\n")
-
-NOT_PORTED = "not yet ported in uvaia_tpu_torch (see ROADMAP.md)"
-
 
 @dataclass
 class NearestConfig:
@@ -58,8 +59,8 @@ class NearestConfig:
     pool: int = 4096                 # refs per device batch
     output: str | None = None
     print_interval: int = 10000
-    n_devices: int | None = None     # > 1: not ported yet (refused)
-    site_shards: int = 1             # > 1: not ported yet (refused)
+    n_devices: int | None = None     # > 1: shard the scan over a 'db' axis
+    site_shards: int = 1             # and the sites over a 'site' axis
     checkpoint: str | None = None    # snapshot path (resume if it exists)
     checkpoint_every: float = 60.0   # seconds between snapshots
     codec: str = "xz"                # output compression: xz/bz2/gz/raw
@@ -128,12 +129,22 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
-def check_ported(cfg: NearestConfig) -> None:
-    """Refuse the options whose paths this package does not have yet."""
-    if cfg.n_devices and cfg.n_devices > 1:
-        raise SystemExit(f"--devices {cfg.n_devices} is {NOT_PORTED}")
-    if cfg.site_shards > 1:
-        raise SystemExit(f"--site-shards {cfg.site_shards} is {NOT_PORTED}")
+def make_run_mesh(cfg: NearestConfig, dev: torch.device):
+    """The (db, site) mesh of a sharded run (n_devices > 1; site_shards
+    is ignored otherwise, as in uvaia_tpu), or None.  Refuses a
+    site_shards that does not divide n_devices, and a mesh larger than
+    the visible devices of dev's type."""
+    if not (cfg.n_devices and cfg.n_devices > 1):
+        return None
+    if cfg.site_shards < 1 or cfg.n_devices % cfg.site_shards:
+        raise SystemExit(
+            f"--site-shards {cfg.site_shards} must divide "
+            f"--devices {cfg.n_devices} (mesh is db x site)")
+    try:
+        return pmesh.make_mesh(cfg.n_devices // cfg.site_shards,
+                               cfg.site_shards, device_type=dev.type)
+    except ValueError as e:
+        raise SystemExit(f"--devices {cfg.n_devices}: {e}")
 
 
 def run_nearest(ref_paths: list[str], query_path: str,
@@ -147,9 +158,13 @@ def run_nearest(ref_paths: list[str], query_path: str,
 @full_float32_matmuls()
 def _run_nearest(ref_paths: list[str], query_path: str,
                  cfg: NearestConfig) -> NearestResult:
-    check_ported(cfg)
     dev = resolve_device(cfg.device)
     cfg.clamp()
+    mesh = make_run_mesh(cfg, dev)
+    if mesh is not None:
+        n_db = mesh.shape["db"]
+        cfg.pool = -(-cfg.pool // n_db) * n_db   # round up to divide evenly
+        dev = mesh.lead
     chrono = Chronometer()
     t0 = time.time()
     pack = build_query_pack(query_path, trim=cfg.trim, acgt=cfg.acgt,
@@ -180,7 +195,11 @@ def _run_nearest(ref_paths: list[str], query_path: str,
     store_base = store_mod.peek_store_base(ref_paths[0]) if store_mode \
         else None
 
-    qd = scan.build_device_data(pack, k=cfg.nbest, device=dev)
+    qd = scan.build_device_data(
+        pack, k=cfg.nbest, device=dev,
+        site_shards=cfg.site_shards if mesh is not None else 1)
+    if mesh is not None:
+        log(f"Sharded scan over mesh (db={n_db}, site={cfg.site_shards})")
     if store_base is not None:
         qd.delta_base = up(store_base)
     delta_base = qd.delta_base.cpu().numpy()
@@ -276,6 +295,34 @@ def _run_nearest(ref_paths: list[str], query_path: str,
 
     pairs = streamer if store_mode else EncodedStream(streamer, delta_base)
 
+    def ridx_of(batch, payload) -> torch.Tensor:
+        return up(batch.base_idx + np.arange(payload[1].shape[0],
+                                             dtype=np.int32))
+
+    def make_step_fn():
+        if mesh is None:
+            def step_fn(st, batch, payload):
+                ok = up(batch.ok)
+                if payload[0] == "delta":
+                    return scan.scan_step_delta(
+                        qd, st, up(payload[1]), up(payload[2]), ok,
+                        batch.base_idx)
+                return scan.scan_step_packed(qd, st, up(payload[1]), ok,
+                                             batch.base_idx)
+            return step_fn
+        # dense sharded steps: only the --no-prune loop uses these (the
+        # sharded prune path builds its own survivor ops)
+        sh_step = pmesh.make_sharded_scan_step(qd, mesh)
+        sh_step_delta = pmesh.make_sharded_scan_step(qd, mesh, delta=True)
+
+        def step_fn(st, batch, payload):
+            ok, ridx = up(batch.ok), ridx_of(batch, payload)
+            if payload[0] == "delta":
+                return sh_step_delta(st, up(payload[1]), up(payload[2]), ok,
+                                     ridx)
+            return sh_step(st, up(payload[1]), ok, ridx)
+        return step_fn
+
     def _progress(total):
         nonlocal last_print
         if total - last_print >= cfg.print_interval:
@@ -287,7 +334,61 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 f"poorly resolved. {rate:,.0f} genomes/sec. "
                 f"{time.time()-t1:.1f}s elapsed.")
 
-    if cfg.prune:
+    if cfg.prune and mesh is not None:
+        # ---- sharded two-phase with device-resident survivor buffers:
+        # prune data-parallel over 'db'; each shard compacts its own
+        # surviving rows into its own buffer (no re-upload); a flush
+        # scores every shard's buffer and merges the candidates
+        scan.build_prune_data(qd, pack)
+        B_loc = cfg.pool // n_db
+        cap_loc = 2 * B_loc
+        sv_init, prune_acc, prune_acc_delta, sv_flush = \
+            pmesh.make_sharded_survivor_ops(qd, mesh, cap_loc)
+        bufs = sv_init()
+        retained: dict[int, tuple] = {}
+        n_surv = 0
+
+        def flush_p2_sharded():
+            nonlocal state, retained
+            if not retained:
+                return
+            idxs = bufs.indices()
+            state, flags, _ = sv_flush(state, bufs)
+            for slot in np.nonzero(flags.cpu().numpy())[0]:
+                g = int(idxs[slot])
+                entry = retained[g]
+                names[g] = entry[0]
+                write_dump(writer, entry)
+            retained = {}
+
+        for batch, payload in pairs:
+            ok, ridx = up(batch.ok), ridx_of(batch, payload)
+            if payload[0] == "delta":
+                survive, bufs = prune_acc_delta(
+                    state, bufs, up(payload[1]), up(payload[2]), ok, ridx)
+            else:
+                survive, bufs = prune_acc(state, bufs, up(payload[1]), ok,
+                                          ridx)
+            sv = np.nonzero(survive.cpu().numpy()[: batch.n])[0]
+            for i in sv:
+                retained[batch.base_idx + int(i)] = dump_entry(batch, int(i))
+            n_surv += len(sv)
+            # rows past a shard's buffer end would be lost: flush
+            # whenever the fullest shard could overflow on the next batch
+            if int(bufs.fill().max()) + B_loc > cap_loc:
+                flush_p2_sharded()
+            if cfg.checkpoint is not None and \
+                    time.time() - last_ckpt >= cfg.checkpoint_every:
+                flush_p2_sharded()
+                last_ckpt = time.time()
+                _save_ckpt(batch, host_state(state))
+            _progress(batch.base_idx + batch.n)
+        flush_p2_sharded()
+        total = streamer.stats.count - streamer.stats.n_invalid - \
+            streamer.stats.same_name
+        log(f"Prefilter skipped the exact scan for {total - n_surv} of "
+            f"{total} references (losslessly)")
+    elif cfg.prune:
         scan.build_prune_data(qd, pack)
         # ---- two-phase: phase 1 prunes on the device; surviving rows
         # are compacted into a device buffer (no re-upload) and phase 2
@@ -368,6 +469,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         log(f"Prefilter skipped the exact scan for {total - n_surv} of "
             f"{total} references (losslessly)")
     else:
+        step_fn = make_step_fn()
         pending = None  # (flags_device, batch) for one-batch pipelining
         for batch, payload in pairs:
             # a due checkpoint snapshots the state BEFORE this step,
@@ -377,14 +479,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                         and time.time() - last_ckpt >= cfg.checkpoint_every)
             if ckpt_due:
                 state_host = host_state(state)
-            ok = up(batch.ok)
-            if payload[0] == "delta":
-                state, flags_d = scan.scan_step_delta(
-                    qd, state, up(payload[1]), up(payload[2]), ok,
-                    batch.base_idx)
-            else:
-                state, flags_d = scan.scan_step_packed(
-                    qd, state, up(payload[1]), ok, batch.base_idx)
+            state, flags_d = step_fn(state, batch, payload)
             if pending is not None:
                 prev = pending[1]
                 _drain(pending)

@@ -51,7 +51,8 @@ class QueryDeviceData:
 
     Site classes are realised by zeroing the query-side arrays outside
     each class (a zero code counts nothing), so reference rows are used
-    full width (W = n_sites padded to a multiple of 1024)."""
+    full width (W = n_sites padded to a multiple of 1024 x the site
+    shards)."""
 
     acgt: bool
     n_query: int
@@ -115,13 +116,17 @@ def device_data_from_numpy(d: dict, device) -> QueryDeviceData:
     return QueryDeviceData(**kw)
 
 
-def build_device_data(pack, k: int, device="cpu") -> QueryDeviceData:
+def build_device_data(pack, k: int, device="cpu",
+                      site_shards: int = 1) -> QueryDeviceData:
     """Query tensors for a QueryPack (the numpy preparation of
-    uvaia_tpu.ops.scan.build_device_data, single site shard).  An --acgt
-    pack has no ambiguity columns (no corrections in that mode) and a
-    q_poly."""
+    uvaia_tpu.ops.scan.build_device_data).  ``site_shards`` pads the
+    site axis to a multiple of 1024 * site_shards, so that it splits
+    into equal blocks over the site axis of a mesh (parallel/mesh.py).
+    An --acgt pack has no ambiguity columns (no corrections in that
+    mode) and a q_poly."""
     L = pack.n_sites
-    W = -(-L // 1024) * 1024
+    mult = 1024 * site_shards
+    W = -(-L // mult) * mult
     idx_mq = pack.idx_mq.astype(np.int32)
     q_full = np.zeros((pack.n_query, W), dtype=np.uint8)
     q_full[:, idx_mq] = pack.codes[:, idx_mq]
@@ -221,12 +226,14 @@ def site_partials(acgt: bool, cons_full, q_full, ref_codes, q_poly=None):
 
 
 def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
-                          ref_amb=None):
+                          ref_amb=None, q_amb=None):
     """Partials + ambiguity corrections -> six (B, Q) int32 planes.
 
     ``ref_codes`` is read only at qd.amb_sites; ``ref_amb`` — the (B, A)
     amb-column reference codes already gathered (packed scoring) —
-    replaces it when given."""
+    replaces it when given, and ``q_amb`` — the (Q, A) query codes there,
+    gathered once from the full-width q_full (the mesh's site shards
+    hold only a block of it) — replaces the gather from qd.q_full."""
     if qd.acgt:
         # the s4/s5 split of nearest.c:443-477
         mm_c, va_c, _, _, valid_sites = cons5.unbind(1)
@@ -242,7 +249,8 @@ def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
     if qd.amb_sites is not None:
         ra = ref_amb if ref_amb is not None else _take_fill(
             ref_codes, qd.amb_sites)
-        qa = _take_fill(qd.q_full, qd.amb_sites)
+        qa = q_amb if q_amb is not None else _take_fill(qd.q_full,
+                                                        qd.amb_sites)
         corr_t, corr_p = amb_corr(ra, qa)
     s0 = acgt_c[:, None] + s_aa
     s1 = text_c[:, None] + s_aa + corr_t
@@ -251,6 +259,14 @@ def assemble_score_planes(qd: QueryDeviceData, ref_codes, cons5, mats,
     s4 = s_aa
     s5 = valid_sites[:, None].expand_as(s_aa)
     return (s0, s1, s2, s3, s4, s5)
+
+
+def assemble_scores(qd: QueryDeviceData, ref_codes, cons5, mats,
+                    q_amb=None) -> torch.Tensor:
+    """Stacked (B, Q, 6) form of assemble_score_planes (the mesh's
+    per-shard candidate selection)."""
+    return torch.stack(assemble_score_planes(qd, ref_codes, cons5, mats,
+                                             q_amb=q_amb), dim=-1)
 
 
 def _valid(qd: QueryDeviceData, planes) -> torch.Tensor:
@@ -511,18 +527,19 @@ def new_survivor_buffer(cap: int, width: int, device):
 
 
 def accumulate_survivors(buf, buf_idx, buf_n, ref_codes, survive,
-                         base_idx):
+                         base_idx, ref_idx=None):
     """Append this batch's surviving rows to the device survivor buffer
     in stream order, with no host round trip.  Updates buf, buf_idx and
     buf_n in place (the JAX version donated them); the caller keeps
-    buf_n + B <= capacity by flushing first."""
+    buf_n + B <= capacity by flushing first.  The rows' global indices
+    are base_idx + row, or ``ref_idx`` (B,) int32 where given."""
     cap = buf.shape[0] - 1
     s32 = survive.to(torch.int32)
     pos = buf_n + torch.cumsum(s32, 0, dtype=torch.int32) - s32
     pos_w = torch.where(survive & (pos < cap), pos, cap).long()
     buf.index_copy_(0, pos_w, ref_codes)
-    gidx = base_idx + torch.arange(ref_codes.shape[0], dtype=torch.int32,
-                                   device=buf.device)
+    gidx = ref_idx if ref_idx is not None else base_idx + torch.arange(
+        ref_codes.shape[0], dtype=torch.int32, device=buf.device)
     buf_idx.index_copy_(0, pos_w, gidx)
     buf_n += s32.sum(dtype=torch.int32)
     return buf, buf_idx, buf_n
