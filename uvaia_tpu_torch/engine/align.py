@@ -18,7 +18,6 @@ hand-written kernel, and a missing GPU is an error, never a CPU run.
 from __future__ import annotations
 
 import sys
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +26,7 @@ import torch
 from ..core.encoding import composition, encode, strict_chars_check
 from ..io.fasta import FastaRecord, make_fasta_writer, read_fasta
 from ..ops import gotoh
+from ..utils import observe
 from ..utils.observe import maybe_profile
 from ..utils.prefetch import Prefetcher
 from .nearest import resolve_device
@@ -158,6 +158,7 @@ def _unpack4(packed: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
     return torch.stack([hi, lo], dim=2).reshape(B, m2 * 2)
 
 
+@observe.span("upload")
 def _make_device_batch(ref_arr, recs, device) -> _DeviceBatch:
     arr, lens = _pack_rows(recs)
     up = lambda a: torch.from_numpy(np.require(a, requirements="CW")).to(
@@ -209,10 +210,12 @@ def _chunk_plan(n: int, width: int) -> tuple[int, int]:
     return cap - cap % b_mult, b_mult
 
 
-def _dispatch_group(db: _DeviceBatch, items, lo, width, stats):
+def _dispatch_group(db: _DeviceBatch, items, lo, width, stats,
+                    redo: bool = False):
     """Run one group's aligner, split so the traceback buffer (B*n*W
     bytes on the device) stays under budget.  Returns a list of pending
-    (items, lens, meta_dev, lo, width) tuples."""
+    (items, lens, meta_dev, lo, width) tuples.  `redo`: the rows were
+    dispatched before (an escalation or the certificate-2 fallback)."""
     n = db.ref_arr.shape[0]
     max_rows, b_mult = _chunk_plan(n, width)
     if max_rows == 0:
@@ -228,6 +231,8 @@ def _dispatch_group(db: _DeviceBatch, items, lo, width, stats):
         meta_d = gotoh.align_rows(
             db.ref_d, db.arr_d, db.lens_d, idx_d, lo, width, gotoh.EV_CAP)
         pending.append((part, lens, meta_d, lo, width))
+    observe.count("redo_rows" if redo else "forward_rows", len(items))
+    observe.count("forward_cells", len(items) * n * width)
     return pending
 
 
@@ -242,45 +247,54 @@ def _collect_group(db: _DeviceBatch, handle, out, stats, cfg,
     ref_arr = db.ref_arr
     n = ref_arr.shape[0]
     recs = [r for r, _ in items]
+    with observe.span("device_wait"):
+        meta = meta_d.cpu().numpy()
     (score, edge_min, done, cnt, ovf, t_end, ev_i,
-     ev_t) = gotoh.unpack_meta_events(meta_d.cpu().numpy(), gotoh.EV_CAP)
+     ev_t) = gotoh.unpack_meta_events(meta, gotoh.EV_CAP)
     walk_cost = np.full(score.shape[0], -1, dtype=np.int64)
     row_cache: dict[int, bytes] = {}
     dense = []
-    for i in range(len(recs)):
-        if not done[i]:
-            continue                   # fails certify -> band escalation
-        if ovf[i]:
-            dense.append(i)
-            continue
-        q = np.frombuffer(recs[i].seq, dtype=np.uint8)
-        row, cost = gotoh.decode_events(q, ref_arr, int(t_end[i]), lo,
-                                        ev_i[i], ev_t[i], int(cnt[i]))
-        if row is None:
-            dense.append(i)
-        else:
-            row_cache[i] = row.tobytes()
-            walk_cost[i] = cost
+    with observe.span("decode"):
+        for i in range(len(recs)):
+            if not done[i]:
+                continue               # fails certify -> band escalation
+            if ovf[i]:
+                dense.append(i)
+                continue
+            q = np.frombuffer(recs[i].seq, dtype=np.uint8)
+            row, cost = gotoh.decode_events(q, ref_arr, int(t_end[i]), lo,
+                                            ev_i[i], ev_t[i], int(cnt[i]))
+            if row is None:
+                dense.append(i)
+            else:
+                row_cache[i] = row.tobytes()
+                walk_cost[i] = cost
     if dense:
         # event-capacity overflow (> EV_CAP kind changes, i.e. > 96 gap
         # runs — pathological rows): dense per-character walk fallback,
         # with the dispatch's padded-batch index budget
-        _, b_mult = _chunk_plan(n, width)
-        idx_d, _ = _pad_idx(db, [items[i][1] for i in dense], b_mult)
-        meta2, aligned2 = gotoh.align_rows_dense(
-            db.ref_d, db.arr_d, db.lens_d, idx_d, lo, width, E_DIFF)
-        (_s2, _e2, _d2, wc2, count2, pos2,
-         chars2) = gotoh.unpack_meta(meta2.cpu().numpy(), E_DIFF)
-        for k, i in enumerate(dense):
-            walk_cost[i] = wc2[k]
-            if count2[k] <= E_DIFF:
-                row = ref_arr.copy()
-                row[pos2[k, :count2[k]]] = chars2[k, :count2[k]]
-                row_cache[i] = row.tobytes()
-            else:
-                row_cache[i] = aligned2[k].cpu().numpy().tobytes()
-    ok, consistent, wander = gotoh.certify(
-        score, edge_min, done, walk_cost, lens, n, lo, width)
+        with observe.span("dense"):
+            _, b_mult = _chunk_plan(n, width)
+            idx_d, _ = _pad_idx(db, [items[i][1] for i in dense], b_mult)
+            meta2, aligned2 = gotoh.align_rows_dense(
+                db.ref_d, db.arr_d, db.lens_d, idx_d, lo, width, E_DIFF)
+            with observe.span("device_wait"):
+                meta2 = meta2.cpu().numpy()
+            (_s2, _e2, _d2, wc2, count2, pos2,
+             chars2) = gotoh.unpack_meta(meta2, E_DIFF)
+            for k, i in enumerate(dense):
+                walk_cost[i] = wc2[k]
+                if count2[k] <= E_DIFF:
+                    row = ref_arr.copy()
+                    row[pos2[k, :count2[k]]] = chars2[k, :count2[k]]
+                    row_cache[i] = row.tobytes()
+                else:
+                    row_cache[i] = aligned2[k].cpu().numpy().tobytes()
+        observe.count("dense_rows", len(dense))
+        observe.count("forward_cells", len(dense) * n * width)
+    with observe.span("decode"):
+        ok, consistent, wander = gotoh.certify(
+            score, edge_min, done, walk_cost, lens, n, lo, width)
 
     retry, exact_items = [], []
 
@@ -317,10 +331,12 @@ def _collect_group(db: _DeviceBatch, handle, out, stats, cfg,
                     stats.failed_band += 1
         else:
             new_lo = lo - (new_width - width) // 2
-            _align_group(db, [items[i] for i in retry],
-                         new_lo, new_width, out, stats, cfg)
+            with observe.span("escalate"):
+                _align_group(db, [items[i] for i in retry],
+                             new_lo, new_width, out, stats, cfg)
     if exact_items:
-        _exact_fallback(db, exact_items, out, stats, cfg)
+        with observe.span("exact"):
+            _exact_fallback(db, exact_items, out, stats, cfg)
 
 
 def _exact_fallback(db: _DeviceBatch, ex_items, out, stats, cfg):
@@ -350,8 +366,9 @@ def _exact_fallback(db: _DeviceBatch, ex_items, out, stats, cfg):
 
 def _align_group(db: _DeviceBatch, items, lo, width, out, stats, cfg,
                  exact: bool = False):
-    """Synchronous dispatch + collect (escalations, small groups)."""
-    for handle in _dispatch_group(db, items, lo, width, stats):
+    """Synchronous dispatch + collect of rows dispatched before
+    (escalations, the certificate-2 fallback)."""
+    for handle in _dispatch_group(db, items, lo, width, stats, redo=True):
         _collect_group(db, handle, out, stats, cfg, exact=exact)
 
 
@@ -370,29 +387,32 @@ ROUTE_MARGIN = 16   # extra half-band beyond |len offset| when routing
 
 
 def run_align(ref_path: str, fasta_paths: list[str], cfg: AlignConfig):
-    with maybe_profile():
-        return _run_align(ref_path, fasta_paths, cfg)
+    with maybe_profile(), observe.job("align", log) as root:
+        return _run_align(ref_path, fasta_paths, cfg, root)
 
 
-def _run_align(ref_path: str, fasta_paths: list[str], cfg: AlignConfig):
+def _run_align(ref_path: str, fasta_paths: list[str], cfg: AlignConfig,
+               root: observe.Span):
     dev = resolve_device(cfg.device)
-    t0 = time.time()
-    try:
-        ref = next(iter(read_fasta(ref_path)))
-    except StopIteration:
-        raise SystemExit(f"Error reading reference sequence {ref_path}")
+    with observe.span("reference"):
+        try:
+            ref = next(iter(read_fasta(ref_path)))
+        except StopIteration:
+            raise SystemExit(f"Error reading reference sequence {ref_path}")
     n = len(ref.seq)
     ref_arr = np.frombuffer(ref.seq, dtype=np.uint8)
     log(f"Reference {ref.name}: {n} sites")
 
     writer = None
     if not cfg.to_stdout:
-        writer = make_fasta_writer(cfg.prefix + ".aln", cfg.codec)
+        with observe.span("write"):
+            writer = make_fasta_writer(cfg.prefix + ".aln", cfg.codec)
         log(f"Sequences will be compressed and saved into file "
             f"{writer.path}.")
 
     stats = AlignStats()
 
+    @observe.span("dispatch")
     def dispatch_pool(batch):
         """Upload one pool and run its aligners.  Each row is routed to
         a canonical zero-centred band bucket from its length offset
@@ -426,20 +446,24 @@ def _run_align(ref_path: str, fasta_paths: list[str], cfg: AlignConfig):
             pending += _dispatch_group(db, items, lo, width, stats)
         return db, pending, batch
 
+    @observe.span("collect")
     def collect_pool(handle):
+        """The pool's rows in input order: (record, aligned bytes) of
+        every row that aligned."""
         db, pending, batch = handle
         out: dict[int, bytes] = {}
         for h in pending:
             _collect_group(db, h, out, stats, cfg)
-        for r in batch:
-            seq = out.get(id(r))
-            if seq is None:
-                continue
-            stats.n_output += 1
+        return [(r, out[id(r)]) for r in batch if id(r) in out]
+
+    @observe.span("write")
+    def write_rows(rows):
+        for r, seq in rows:
             if cfg.to_stdout:
                 sys.stdout.write(f">{r.name}\n{seq.decode('ascii')}\n")
             else:
                 writer.write(r.name, seq)
+        stats.n_output += len(rows)
 
     # Reader thread: read + QC the next pool while the current one
     # aligns; the main loop keeps one pool dispatched ahead of the one
@@ -463,37 +487,46 @@ def _run_align(ref_path: str, fasta_paths: list[str], cfg: AlignConfig):
                     last_print = stats.count
                     log(f"{stats.count}\t sequences read, "
                         f"{stats.n_output} \taligned. "
-                        f"{time.time()-t0:.3f} secs elapsed.")
+                        f"{root.seconds():.3f} secs elapsed.")
             log(f"Finished reading file {path}.")
         if batch:
             yield batch
 
-    reader = Prefetcher(_pools, maxsize=2)
+    reader = Prefetcher(lambda: observe.iter_spans("read_qc", _pools()),
+                        maxsize=2)
     prev = None
-    for batch in reader:
+    for batch in observe.iter_spans("read_wait", reader):
         cur = dispatch_pool(batch)
         if prev is not None:
-            collect_pool(prev)
+            write_rows(collect_pool(prev))
         prev = cur
     if prev is not None:
-        collect_pool(prev)
+        write_rows(collect_pool(prev))
 
     if writer is not None:
-        writer.close()
+        with observe.span("writer_close"):
+            writer.close()
         log(f"Saved {stats.n_output} sequences to file {writer.path}")
+    for name, k in (("rows_read", stats.count),
+                    ("rows_rejected",
+                     stats.rejected_length + stats.rejected_ambiguity),
+                    ("uncertified_rows", stats.uncertified),
+                    ("failed_rows", stats.failed_band)):
+        observe.count(name, k)
+    counts = root.counts
     if stats.uncertified_names:
         # audit sidecar: rows accepted without an optimality certificate
         side = cfg.prefix + ".uncertified.txt"
         with open(side, "w") as fh:
             fh.write("\n".join(stats.uncertified_names) + "\n")
-        log(f"Wrote {stats.uncertified} uncertified sequence names to "
-            f"{side} (alignments emitted, optimality not provable "
-            f"within --band)")
-    log(f"Total: {stats.count} read, {stats.n_output} aligned, "
+        log(f"Wrote {counts['uncertified_rows']} uncertified sequence "
+            f"names to {side} (alignments emitted, optimality not "
+            f"provable within --band)")
+    log(f"Total: {counts['rows_read']} read, {stats.n_output} aligned, "
         f"{stats.rejected_length} wrong length, "
         f"{stats.rejected_ambiguity} too ambiguous, "
         f"{stats.exact_certified} certified beyond --band, "
-        f"{stats.uncertified} uncertified (band cap), "
-        f"{stats.failed_band} failed. "
-        f"{time.time()-t0:.3f} secs total.")
+        f"{counts['uncertified_rows']} uncertified (band cap), "
+        f"{counts['failed_rows']} failed. "
+        f"{root.seconds():.3f} secs total.")
     return stats

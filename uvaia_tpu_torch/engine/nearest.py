@@ -36,7 +36,8 @@ from ..ops.host import IDX_SENTINEL
 from ..ops.score_kernels import full_float32_matmuls
 from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
-from ..utils.observe import Chronometer, maybe_profile
+from ..utils import observe
+from ..utils.observe import maybe_profile
 from .query import QueryPack, build_query_pack, log
 from .stream import EncodedStream, RefStreamer, dump_entry, write_dump
 
@@ -107,6 +108,7 @@ class NearestResult:
                        *map(int, self.scores[qi, slot]))
 
     def write_csv(self, path: str) -> None:
+        n = 0
         with open_write(path) as fh:
             fh.write((CSV_HEADER_ACGT if self.pack.acgt
                       else CSV_HEADER_FULL).encode())
@@ -114,6 +116,9 @@ class NearestResult:
                 q, r, rank, *s = row
                 fh.write((f"{q},{r},{rank}," +
                           ",".join(map(str, s)) + "\n").encode())
+                n += 1
+        observe.count("csv_rows", n)
+        observe.count("csv_bytes", os.path.getsize(path))
 
 
 def resolve_device(name: str) -> torch.device:
@@ -149,15 +154,15 @@ def make_run_mesh(cfg: NearestConfig, dev: torch.device):
 
 def run_nearest(ref_paths: list[str], query_path: str,
                 cfg: NearestConfig) -> NearestResult:
-    with maybe_profile():
-        return _run_nearest(ref_paths, query_path, cfg)
+    with maybe_profile(), observe.job("nearest", log) as root:
+        return _run_nearest(ref_paths, query_path, cfg, root)
 
 
 # prune_step's site product runs as a float32 matmul, exact only in
 # full float32 precision (score_kernels.exact_counts)
 @full_float32_matmuls()
 def _run_nearest(ref_paths: list[str], query_path: str,
-                 cfg: NearestConfig) -> NearestResult:
+                 cfg: NearestConfig, root: observe.Span) -> NearestResult:
     dev = resolve_device(cfg.device)
     cfg.clamp()
     mesh = make_run_mesh(cfg, dev)
@@ -165,13 +170,12 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         n_db = mesh.shape["db"]
         cfg.pool = -(-cfg.pool // n_db) * n_db   # round up to divide evenly
         dev = mesh.lead
-    chrono = Chronometer()
-    t0 = time.time()
-    pack = build_query_pack(query_path, trim=cfg.trim, acgt=cfg.acgt,
-                            ambiguity=cfg.query_ambiguity,
-                            keep_resolved=cfg.keep_resolved)
+    with observe.span("query_pack") as sp:
+        pack = build_query_pack(query_path, trim=cfg.trim, acgt=cfg.acgt,
+                                ambiguity=cfg.query_ambiguity,
+                                keep_resolved=cfg.keep_resolved)
     log(f"Prepared {pack.n_query} query sequences in "
-        f"{time.time()-t0:.2f}s; scanning with top-k={cfg.nbest}, "
+        f"{sp.seconds():.2f}s; scanning with top-k={cfg.nbest}, "
         f"batch={cfg.pool}")
     if cfg.acgt:
         log("Considering ACGT differences only "
@@ -181,91 +185,100 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             "(excluding only gaps and Ns).")
 
     def up(x: np.ndarray) -> torch.Tensor:
+        observe.count("h2d_bytes", x.nbytes)
         return scan.upload(x, dev)
 
-    # persistent-store inputs (io/store.py): batches stream
-    # straight from mmap; the store's delta base replaces the query
-    # majority so uploads reuse the stored diff lists
-    n_store = sum(store_mod.is_store(p) for p in ref_paths)
-    if n_store and n_store != len(ref_paths):
-        raise SystemExit(
-            "reference inputs mix ingested stores and FASTA files; "
-            "scan them in separate runs (or ingest the FASTA too)")
-    store_mode = n_store > 0
-    store_base = store_mod.peek_store_base(ref_paths[0]) if store_mode \
-        else None
-
-    qd = scan.build_device_data(
-        pack, k=cfg.nbest, device=dev,
-        site_shards=cfg.site_shards if mesh is not None else 1)
-    if mesh is not None:
-        log(f"Sharded scan over mesh (db={n_db}, site={cfg.site_shards})")
-    if store_base is not None:
-        qd.delta_base = up(store_base)
-    delta_base = qd.delta_base.cpu().numpy()
-    state = scan.init_state(pack.n_query, cfg.nbest, device=dev)
-
-    # ---- checkpoint / resume (same key and file format as uvaia_tpu,
-    # so either package resumes the other's snapshot) ------------------
-    ckpt_key = ckpt_mod.config_key(
-        refs=list(ref_paths), query=query_path, nbest=cfg.nbest,
-        trim=cfg.trim, acgt=cfg.acgt, keep_resolved=cfg.keep_resolved,
-        exclude_self=cfg.exclude_self, qa=cfg.query_ambiguity,
-        ra=cfg.ref_ambiguity, n_query=pack.n_query,
-        skip=cfg.skip_records, limit=cfg.limit_records, codec=cfg.codec)
-    ckpt = ckpt_mod.load(cfg.checkpoint) if cfg.checkpoint else None
-    if ckpt is not None and ckpt.config_key != ckpt_key:
-        raise SystemExit(f"checkpoint {cfg.checkpoint} was written by a "
-                         "different run configuration; remove it or use "
-                         "a different path")
-    names: dict[int, str] = {}
-    skip, base0, resumed_written = cfg.skip_records, 0, 0
-    if ckpt is not None:
-        state = (up(ckpt.state_scores), up(ckpt.state_idx))
-        names = dict(ckpt.names)
-        skip, base0 = ckpt.records_read, ckpt.base_idx
-        resumed_written = ckpt.n_written
-        log(f"Resuming from checkpoint: {skip} records already scanned, "
-            f"{resumed_written} sequences already dumped")
-
-    exclude = set(pack.names) if cfg.exclude_self else None
-    streamer_cls = store_mod.StoreStreamer if store_mode else RefStreamer
-    extra_kw = {}
-    if cfg.limit_records:
-        if not store_mode:
+    with observe.span("device_data"):
+        # persistent-store inputs (io/store.py): batches stream
+        # straight from mmap; the store's delta base replaces the query
+        # majority so uploads reuse the stored diff lists
+        n_store = sum(store_mod.is_store(p) for p in ref_paths)
+        if n_store and n_store != len(ref_paths):
             raise SystemExit(
-                "record-window scanning (limit_records) requires "
-                "ingested store inputs")
-        extra_kw["limit_records"] = cfg.limit_records
-    streamer = streamer_cls(ref_paths, pack.n_sites, cfg.pool,
-                            ref_ambiguity=cfg.ref_ambiguity,
-                            exclude_names=exclude,
-                            skip_records=skip, initial_base=base0,
-                            **extra_kw)
-    if ckpt is not None:
-        streamer.stats.count = ckpt.records_read
-        streamer.stats.n_invalid = ckpt.n_invalid
-        streamer.stats.same_name = ckpt.same_name
+                "reference inputs mix ingested stores and FASTA files; "
+                "scan them in separate runs (or ingest the FASTA too)")
+        store_mode = n_store > 0
+        store_base = store_mod.peek_store_base(ref_paths[0]) if store_mode \
+            else None
 
-    dump_base = cfg.prefix + ".aln"
-    dump_path = dump_base + WRITE_CODEC_SUFFIX[cfg.codec]
-    if ckpt is not None:
-        # drop any truncated stream a crash left after the snapshot
-        if os.path.exists(dump_path) and \
-                os.path.getsize(dump_path) >= ckpt.dump_bytes:
-            os.truncate(dump_path, ckpt.dump_bytes)
-        else:
-            raise SystemExit(
-                f"{dump_path} is smaller than the checkpoint recorded; "
-                "the dump and checkpoint no longer match")
-    writer = make_fasta_writer(dump_base, cfg.codec,
-                               append=ckpt is not None)
-    t1 = time.time()
+        qd = scan.build_device_data(
+            pack, k=cfg.nbest, device=dev,
+            site_shards=cfg.site_shards if mesh is not None else 1)
+        if mesh is not None:
+            log(f"Sharded scan over mesh (db={n_db}, site={cfg.site_shards})")
+        if store_base is not None:
+            qd.delta_base = up(store_base)
+        delta_base = qd.delta_base.cpu().numpy()
+        state = scan.init_state(pack.n_query, cfg.nbest, device=dev)
+
+        # ---- checkpoint / resume (same key and file format as uvaia_tpu,
+        # so either package resumes the other's snapshot) ------------------
+        ckpt_key = ckpt_mod.config_key(
+            refs=list(ref_paths), query=query_path, nbest=cfg.nbest,
+            trim=cfg.trim, acgt=cfg.acgt, keep_resolved=cfg.keep_resolved,
+            exclude_self=cfg.exclude_self, qa=cfg.query_ambiguity,
+            ra=cfg.ref_ambiguity, n_query=pack.n_query,
+            skip=cfg.skip_records, limit=cfg.limit_records, codec=cfg.codec)
+        ckpt = ckpt_mod.load(cfg.checkpoint) if cfg.checkpoint else None
+        if ckpt is not None and ckpt.config_key != ckpt_key:
+            raise SystemExit(f"checkpoint {cfg.checkpoint} was written by a "
+                             "different run configuration; remove it or use "
+                             "a different path")
+        names: dict[int, str] = {}
+        skip, base0, resumed_written = cfg.skip_records, 0, 0
+        if ckpt is not None:
+            state = (up(ckpt.state_scores), up(ckpt.state_idx))
+            names = dict(ckpt.names)
+            skip, base0 = ckpt.records_read, ckpt.base_idx
+            resumed_written = ckpt.n_written
+            observe.count("dump_records", resumed_written)
+            log(f"Resuming from checkpoint: {skip} records already scanned, "
+                f"{resumed_written} sequences already dumped")
+
+        exclude = set(pack.names) if cfg.exclude_self else None
+        streamer_cls = store_mod.StoreStreamer if store_mode else RefStreamer
+        extra_kw = {}
+        if cfg.limit_records:
+            if not store_mode:
+                raise SystemExit(
+                    "record-window scanning (limit_records) requires "
+                    "ingested store inputs")
+            extra_kw["limit_records"] = cfg.limit_records
+        streamer = streamer_cls(ref_paths, pack.n_sites, cfg.pool,
+                                ref_ambiguity=cfg.ref_ambiguity,
+                                exclude_names=exclude,
+                                skip_records=skip, initial_base=base0,
+                                **extra_kw)
+        if ckpt is not None:
+            streamer.stats.count = ckpt.records_read
+            streamer.stats.n_invalid = ckpt.n_invalid
+            streamer.stats.same_name = ckpt.same_name
+
+    with observe.span("dump_write"):
+        dump_base = cfg.prefix + ".aln"
+        dump_path = dump_base + WRITE_CODEC_SUFFIX[cfg.codec]
+        if ckpt is not None:
+            # drop any truncated stream a crash left after the snapshot
+            if os.path.exists(dump_path) and \
+                    os.path.getsize(dump_path) >= ckpt.dump_bytes:
+                os.truncate(dump_path, ckpt.dump_bytes)
+            else:
+                raise SystemExit(
+                    f"{dump_path} is smaller than the checkpoint recorded; "
+                    "the dump and checkpoint no longer match")
+        writer = make_fasta_writer(dump_base, cfg.codec,
+                                   append=ckpt is not None)
+    scan_t0 = root.seconds()
     last_print = 0
     last_ckpt = time.time()
 
+    def fetch(t: torch.Tensor) -> np.ndarray:
+        """A device result on the host (blocks until it is ready)."""
+        with observe.span("device_wait"):
+            return t.cpu().numpy()
+
     def host_state(st):
-        return (st[0].cpu().numpy(), st[1].cpu().numpy())
+        return fetch(st[0]), fetch(st[1])
 
     def _save_ckpt(prev_batch, state_host):
         """Snapshot through `prev_batch` (drained; state_host is the
@@ -273,27 +286,42 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         first so the file ends on a complete stream whose size the
         checkpoint records."""
         nonlocal writer, resumed_written
-        resumed_written += writer.n_written
-        writer.close()
-        ckpt_mod.save(cfg.checkpoint, ckpt_mod.ScanCheckpoint(
-            version=ckpt_mod._VERSION, records_read=prev_batch.records_read,
-            base_idx=prev_batch.base_idx + prev_batch.n,
-            n_invalid=prev_batch.n_invalid,
-            same_name=prev_batch.same_name,
-            n_written=resumed_written,
-            state_scores=state_host[0], state_idx=state_host[1],
-            names=names, config_key=ckpt_key,
-            dump_bytes=os.path.getsize(dump_path)))
-        writer = make_fasta_writer(dump_base, cfg.codec, append=True)
+        with observe.span("checkpoint"):
+            resumed_written += writer.n_written
+            writer.close()
+            ckpt_mod.save(cfg.checkpoint, ckpt_mod.ScanCheckpoint(
+                version=ckpt_mod._VERSION,
+                records_read=prev_batch.records_read,
+                base_idx=prev_batch.base_idx + prev_batch.n,
+                n_invalid=prev_batch.n_invalid,
+                same_name=prev_batch.same_name,
+                n_written=resumed_written,
+                state_scores=state_host[0], state_idx=state_host[1],
+                names=names, config_key=ckpt_key,
+                dump_bytes=os.path.getsize(dump_path)))
+            writer = make_fasta_writer(dump_base, cfg.codec, append=True)
 
     def _drain(pending):
         flags, batch = pending
-        flags = flags.cpu().numpy()[: batch.n]
-        for i in np.nonzero(flags)[0]:
-            names[batch.base_idx + int(i)] = batch.names[i]
-            write_dump(writer, dump_entry(batch, int(i)))
+        hit = np.nonzero(fetch(flags)[: batch.n])[0]
+        with observe.span("dump_write"):
+            for i in hit:
+                names[batch.base_idx + int(i)] = batch.names[i]
+                write_dump(writer, dump_entry(batch, int(i)))
+        observe.count("dump_records", len(hit))
 
-    pairs = streamer if store_mode else EncodedStream(streamer, delta_base)
+    def write_flushed(retained, hit_indices):
+        """Dump the retained rows a flush flagged, by global index."""
+        with observe.span("dump_write"):
+            for g in hit_indices:
+                entry = retained[int(g)]
+                names[int(g)] = entry[0]
+                write_dump(writer, entry)
+        observe.count("dump_records", len(hit_indices))
+
+    pairs = observe.iter_spans(
+        "stream_wait",
+        streamer if store_mode else EncodedStream(streamer, delta_base))
 
     def ridx_of(batch, payload) -> torch.Tensor:
         return up(batch.base_idx + np.arange(payload[1].shape[0],
@@ -327,55 +355,62 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         nonlocal last_print
         if total - last_print >= cfg.print_interval:
             last_print = total
-            rate = (total - base0) / max(time.time() - t1, 1e-9)
+            elapsed = root.seconds() - scan_t0
+            rate = (total - base0) / max(elapsed, 1e-9)
             log(f"Total: {streamer.stats.count} sequences analysed, "
                 f"{resumed_written + writer.n_written} saved, "
                 f"{streamer.stats.n_invalid} "
                 f"poorly resolved. {rate:,.0f} genomes/sec. "
-                f"{time.time()-t1:.1f}s elapsed.")
+                f"{elapsed:.1f}s elapsed.")
 
     if cfg.prune and mesh is not None:
         # ---- sharded two-phase with device-resident survivor buffers:
         # prune data-parallel over 'db'; each shard compacts its own
         # surviving rows into its own buffer (no re-upload); a flush
         # scores every shard's buffer and merges the candidates
-        scan.build_prune_data(qd, pack)
-        B_loc = cfg.pool // n_db
-        cap_loc = 2 * B_loc
-        sv_init, prune_acc, prune_acc_delta, sv_flush = \
-            pmesh.make_sharded_survivor_ops(qd, mesh, cap_loc)
-        bufs = sv_init()
+        with observe.span("device_data"):
+            scan.build_prune_data(qd, pack)
+            B_loc = cfg.pool // n_db
+            cap_loc = 2 * B_loc
+            sv_init, prune_acc, prune_acc_delta, sv_flush = \
+                pmesh.make_sharded_survivor_ops(qd, mesh, cap_loc)
+            bufs = sv_init()
         retained: dict[int, tuple] = {}
-        n_surv = 0
 
         def flush_p2_sharded():
             nonlocal state, retained
             if not retained:
                 return
-            idxs = bufs.indices()
-            state, flags, _ = sv_flush(state, bufs)
-            for slot in np.nonzero(flags.cpu().numpy())[0]:
-                g = int(idxs[slot])
-                entry = retained[g]
-                names[g] = entry[0]
-                write_dump(writer, entry)
+            with observe.span("device_wait"):
+                idxs = bufs.indices()
+            with observe.span("flush"):
+                state, flags, _ = sv_flush(state, bufs)
+            observe.count("flushes", 1)
+            write_flushed(retained, idxs[np.nonzero(fetch(flags))[0]])
             retained = {}
 
         for batch, payload in pairs:
-            ok, ridx = up(batch.ok), ridx_of(batch, payload)
-            if payload[0] == "delta":
-                survive, bufs = prune_acc_delta(
-                    state, bufs, up(payload[1]), up(payload[2]), ok, ridx)
-            else:
-                survive, bufs = prune_acc(state, bufs, up(payload[1]), ok,
-                                          ridx)
-            sv = np.nonzero(survive.cpu().numpy()[: batch.n])[0]
-            for i in sv:
-                retained[batch.base_idx + int(i)] = dump_entry(batch, int(i))
-            n_surv += len(sv)
+            with observe.span("upload_prune"):
+                ok, ridx = up(batch.ok), ridx_of(batch, payload)
+                if payload[0] == "delta":
+                    survive, bufs = prune_acc_delta(
+                        state, bufs, up(payload[1]), up(payload[2]), ok,
+                        ridx)
+                else:
+                    survive, bufs = prune_acc(state, bufs, up(payload[1]),
+                                              ok, ridx)
+            observe.count("batches", 1)
+            sv = np.nonzero(fetch(survive)[: batch.n])[0]
+            with observe.span("retain"):
+                for i in sv:
+                    retained[batch.base_idx + int(i)] = \
+                        dump_entry(batch, int(i))
+            observe.count("rows_scored", len(sv))
             # rows past a shard's buffer end would be lost: flush
             # whenever the fullest shard could overflow on the next batch
-            if int(bufs.fill().max()) + B_loc > cap_loc:
+            with observe.span("device_wait"):
+                fullest = int(bufs.fill().max())
+            if fullest + B_loc > cap_loc:
                 flush_p2_sharded()
             if cfg.checkpoint is not None and \
                     time.time() - last_ckpt >= cfg.checkpoint_every:
@@ -384,38 +419,36 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 _save_ckpt(batch, host_state(state))
             _progress(batch.base_idx + batch.n)
         flush_p2_sharded()
-        total = streamer.stats.count - streamer.stats.n_invalid - \
-            streamer.stats.same_name
-        log(f"Prefilter skipped the exact scan for {total - n_surv} of "
-            f"{total} references (losslessly)")
     elif cfg.prune:
-        scan.build_prune_data(qd, pack)
-        # ---- two-phase: phase 1 prunes on the device; surviving rows
-        # are compacted into a device buffer (no re-upload) and phase 2
-        # scores the buffer when it could overflow.  Capacity: ~1 GB of
-        # device memory, and at least two batches.
-        W = qd.width
-        cap = max(2 * cfg.pool, min(8 * cfg.pool, (1 << 30) // max(W, 1)))
-        buf, buf_idx, buf_n = scan.new_survivor_buffer(cap, W, dev)
+        with observe.span("device_data"):
+            scan.build_prune_data(qd, pack)
+            # ---- two-phase: phase 1 prunes on the device; surviving
+            # rows are compacted into a device buffer (no re-upload) and
+            # phase 2 scores the buffer when it could overflow.
+            # Capacity: ~1 GB of device memory, and at least two batches.
+            W = qd.width
+            cap = max(2 * cfg.pool,
+                      min(8 * cfg.pool, (1 << 30) // max(W, 1)))
+            buf, buf_idx, buf_n = scan.new_survivor_buffer(cap, W, dev)
         # host copies of only the SURVIVOR rows (name + dump payload),
         # keyed by global index
         retained: dict[int, tuple] = {}
-        n_surv = 0
         warmed_up = False
         n_buf_host = 0    # lagged host mirror of buf_n (see drain)
         pending = None    # (survive_dev, batch), drained ONE BEHIND
 
         def drain_pending():
-            nonlocal pending, n_surv, n_buf_host
+            nonlocal pending, n_buf_host
             if pending is None:
                 return
             survive_d, pbatch = pending
             pending = None
-            sv = np.nonzero(survive_d.cpu().numpy()[: pbatch.n])[0]
-            for i in sv:
-                retained[pbatch.base_idx + int(i)] = \
-                    dump_entry(pbatch, int(i))
-            n_surv += len(sv)
+            sv = np.nonzero(fetch(survive_d)[: pbatch.n])[0]
+            with observe.span("retain"):
+                for i in sv:
+                    retained[pbatch.base_idx + int(i)] = \
+                        dump_entry(pbatch, int(i))
+            observe.count("rows_scored", len(sv))
             n_buf_host += len(sv)
 
         def flush_p2():
@@ -424,29 +457,28 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             if n_buf_host == 0:
                 retained = {}
                 return
-            state, flags = scan.flush_survivors(qd, state, buf, buf_idx,
-                                                buf_n)
-            flags = flags.cpu().numpy()
-            idxs = buf_idx.cpu().numpy()
-            for slot in np.nonzero(flags)[0]:
-                g = int(idxs[slot])
-                entry = retained[g]
-                names[g] = entry[0]
-                write_dump(writer, entry)
+            with observe.span("flush"):
+                state, flags = scan.flush_survivors(qd, state, buf, buf_idx,
+                                                    buf_n)
+            observe.count("flushes", 1)
+            flags = fetch(flags)
+            write_flushed(retained, fetch(buf_idx)[np.nonzero(flags)[0]])
             retained = {}
             buf_n.zero_()
             n_buf_host = 0
 
         for batch, payload in pairs:
-            ok = up(batch.ok)
-            if payload[0] == "delta":
-                survive, codes_d = scan.prune_and_hold_delta(
-                    qd, state, up(payload[1]), up(payload[2]), ok)
-            else:
-                survive, codes_d = scan.prune_and_hold(
-                    qd, state, up(payload[1]), ok)
-            scan.accumulate_survivors(buf, buf_idx, buf_n, codes_d,
-                                      survive, batch.base_idx)
+            with observe.span("upload_prune"):
+                ok = up(batch.ok)
+                if payload[0] == "delta":
+                    survive, codes_d = scan.prune_and_hold_delta(
+                        qd, state, up(payload[1]), up(payload[2]), ok)
+                else:
+                    survive, codes_d = scan.prune_and_hold(
+                        qd, state, up(payload[1]), ok)
+                scan.accumulate_survivors(buf, buf_idx, buf_n, codes_d,
+                                          survive, batch.base_idx)
+            observe.count("batches", 1)
             drain_pending()               # sync batch i-1, not i
             pending = (survive, batch)
             # after the drain n_buf_host covers through batch i-1 and the
@@ -464,10 +496,6 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 _save_ckpt(batch, host_state(state))
             _progress(batch.base_idx + batch.n)
         flush_p2()
-        total = streamer.stats.count - streamer.stats.n_invalid - \
-            streamer.stats.same_name
-        log(f"Prefilter skipped the exact scan for {total - n_surv} of "
-            f"{total} references (losslessly)")
     else:
         step_fn = make_step_fn()
         pending = None  # (flags_device, batch) for one-batch pipelining
@@ -479,7 +507,9 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                         and time.time() - last_ckpt >= cfg.checkpoint_every)
             if ckpt_due:
                 state_host = host_state(state)
-            state, flags_d = step_fn(state, batch, payload)
+            with observe.span("upload_prune"):
+                state, flags_d = step_fn(state, batch, payload)
+            observe.count("batches", 1)
             if pending is not None:
                 prev = pending[1]
                 _drain(pending)
@@ -490,7 +520,22 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             _progress(batch.base_idx + batch.n)
         if pending is not None:
             _drain(pending)
-    writer.close()
+    for name, n in (("rows_read", streamer.stats.count),
+                    ("rows_invalid", streamer.stats.n_invalid),
+                    ("rows_same_name", streamer.stats.same_name)):
+        observe.count(name, n)
+    counts = root.counts
+    total = counts["rows_read"] - counts["rows_invalid"] - \
+        counts["rows_same_name"]
+    if cfg.prune:
+        n_skipped = total - counts.get("rows_scored", 0)
+        log(f"Prefilter skipped the exact scan for {n_skipped} of "
+            f"{total} references (losslessly)")
+    else:
+        observe.count("rows_scored", total)
+    with observe.span("dump_close"):
+        writer.close()
+    observe.count("dump_bytes", os.path.getsize(dump_path))
 
     scores, indices = host_state(state)
     result = NearestResult(
@@ -500,14 +545,16 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         n_invalid=streamer.stats.n_invalid,
         same_name=streamer.stats.same_name,
     )
-    log(f"Total of {result.n_scanned} sequences read; {result.n_saved} "
-        f"saved (close or intermediate), {result.n_invalid} too ambiguous "
-        f"(excluded). {time.time()-t1:.2f}s scan time.")
+    log(f"Total of {counts['rows_read']} sequences read; "
+        f"{counts.get('dump_records', 0)} saved (close or intermediate), "
+        f"{counts['rows_invalid']} too ambiguous (excluded). "
+        f"{root.seconds() - scan_t0:.2f}s scan time.")
     if cfg.exclude_self:
-        log(f" {result.same_name} reference sequences already present in "
-            "query alignment (based on name only).")
+        log(f" {counts['rows_same_name']} reference sequences already "
+            "present in query alignment (based on name only).")
     csv_path = cfg.prefix + ".csv" + WRITE_CODEC_SUFFIX[cfg.codec]
-    result.write_csv(csv_path)
+    with observe.span("csv"):
+        result.write_csv(csv_path)
     log(f"Saved distance table to {csv_path} ; "
-        f"{chrono.total():.2f}s total.")
+        f"{root.seconds():.2f}s total.")
     return result

@@ -24,6 +24,7 @@ from ..io import native
 from ..io.compress import sniff_codec
 from ..io.fasta import read_fasta
 from ..ops import host
+from ..utils import observe
 from ..utils.prefetch import Prefetcher, ordered_pool_map
 
 __all__ = ["EncodedStream", "RefBatch", "RefStreamer", "StreamStats",
@@ -106,7 +107,9 @@ class RefStreamer:
         self.skip_records = skip_records   # resume: raw records to skip
         self.initial_base = initial_base   # resume: accepted-count offset
         self.stats = StreamStats()
-        self._pf = Prefetcher(self._batches, maxsize=prefetch)
+        self._pf = Prefetcher(
+            lambda: observe.iter_spans("stream_read", self._batches()),
+            maxsize=prefetch)
 
     def __iter__(self):
         return iter(self._pf)
@@ -287,6 +290,7 @@ class EncodedStream:
         self._pf = Prefetcher(self._batches,
                               maxsize=max(prefetch, self._workers))
 
+    @observe.span("stream_read")
     def _encode(self, batch):
         enc = host.delta_encode(batch.codes, batch.ok, self.delta_base)
         if enc is not None:

@@ -77,6 +77,7 @@ from pathlib import Path
 import numpy as np
 
 from ..core.encoding import DECODE_LUT
+from ..utils import observe
 from ..utils.prefetch import Prefetcher
 
 FORMAT = "uvaia-tpu-store"
@@ -944,7 +945,9 @@ class StoreStreamer:
                   f"{paths[0]}", file=_sys.stderr, flush=True)
         self.base = next(
             (st.base for st in self.stores if st.base is not None), None)
-        self._pf = Prefetcher(self._batches, maxsize=prefetch)
+        self._pf = Prefetcher(
+            lambda: observe.iter_spans("stream_read", self._batches()),
+            maxsize=prefetch)
 
     def __iter__(self):
         return iter(self._pf)

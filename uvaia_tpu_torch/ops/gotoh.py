@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import observe
+
 INF = 1 << 28
 MISMATCH = 4
 GAP_OPEN = 6
@@ -528,13 +530,15 @@ def align_rows(ref, arr_all, lens_all, idx, lo: int, width: int, K: int):
     (decode_events); rows with overflow=True need align_rows_dense."""
     from . import gotoh_kernels
     arr, lens = _gather_rows(arr_all, lens_all, idx)
-    tb, score, t_end, edge_min = gotoh_kernels.gotoh_forward(
-        ref, arr, lens, lo, width)
-    ev_i, ev_t, cnt, done, _edge, ovf = gotoh_traceback_events(
-        tb, t_end, lo, ref.shape[0], K)
-    col = lambda a: a.to(torch.int32)[:, None]
-    return torch.cat([col(score), col(edge_min), col(done), col(cnt),
-                      col(ovf), col(t_end), ev_i, ev_t], dim=1)
+    with observe.span("forward", device=ref.device):
+        tb, score, t_end, edge_min = gotoh_kernels.gotoh_forward(
+            ref, arr, lens, lo, width)
+    with observe.span("walks", device=ref.device):
+        ev_i, ev_t, cnt, done, _edge, ovf = gotoh_traceback_events(
+            tb, t_end, lo, ref.shape[0], K)
+        col = lambda a: a.to(torch.int32)[:, None]
+        return torch.cat([col(score), col(edge_min), col(done), col(cnt),
+                          col(ovf), col(t_end), ev_i, ev_t], dim=1)
 
 
 def align_rows_dense(ref, arr_all, lens_all, idx, lo: int, width: int,
@@ -545,11 +549,14 @@ def align_rows_dense(ref, arr_all, lens_all, idx, lo: int, width: int,
     dense-fetch rows (diff count > E)."""
     from . import gotoh_kernels
     arr, lens = _gather_rows(arr_all, lens_all, idx)
-    tb, score, t_end, edge_min = gotoh_kernels.gotoh_forward(
-        ref, arr, lens, lo, width)
-    aligned, done, _edge, walk_cost = gotoh_traceback(
-        tb, ref, arr, t_end, lo, ref.shape[0])
-    meta = pack_outputs(aligned, ref, score, edge_min, done, walk_cost, E)
+    with observe.span("forward", device=ref.device):
+        tb, score, t_end, edge_min = gotoh_kernels.gotoh_forward(
+            ref, arr, lens, lo, width)
+    with observe.span("walks", device=ref.device):
+        aligned, done, _edge, walk_cost = gotoh_traceback(
+            tb, ref, arr, t_end, lo, ref.shape[0])
+        meta = pack_outputs(aligned, ref, score, edge_min, done, walk_cost,
+                            E)
     return meta, aligned
 
 
