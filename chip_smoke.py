@@ -85,12 +85,18 @@ path's largest first-band dispatch) and the two widths either side of
 the kernel's one-warp / several-warps switch, which are timed at the
 full length but held against the plain version on the first 2,000
 reference bases (the plain version is a Python loop of ~0.5 ms a row).
+The events walk kernel is held against its plain version on the
+forward kernel's traceback bytes at n = 29,903 and W = 513, 1,024 and
+2,049 (the benchmark's first band, its escalation and an exact-fallback
+width) and on random bytes, and phase 7 checks that every events walk
+of its run launched the kernel.
 Each
 kernel's launch count comes from the path that runs it: the nearest
 kernels from phase 4 (full-mode ones from its full-mode pair, the
 --acgt ones from its --acgt pair; delta_rebuild from phase 4, phase
 8's `ball` run and phase 10's three `cluster` runs on the card
-together), `gotoh_score` from phase 6, `gotoh_forward` from phase 7,
+together), `gotoh_score` from phase 6, `gotoh_forward` and
+`walk_events` from phase 7,
 every count set to 0 just before its runs; to the counts of
 delta_rebuild, score_counters, amb_corr and acgt_counters phase 11 adds
 the launches of its sharded calls (the mesh steps, the survivor ops
@@ -132,6 +138,7 @@ from uvaia_tpu_torch.engine.query import build_query_pack
 from uvaia_tpu_torch.io import native
 from uvaia_tpu_torch.ops import _build, gotoh, gotoh_kernels, host, recon
 from uvaia_tpu_torch.ops import scan, score_kernels
+from uvaia_tpu_torch.utils import observe
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -185,6 +192,11 @@ KERNELS = {
         source="uvaia_tpu_torch/csrc/score.cu",
         replaces="uvaia_tpu/ops/pallas_score.py:83",
         wrapper=score_kernels.pair_counters),
+    "walk_events": dict(
+        source="uvaia_tpu_torch/csrc/walk.cu",
+        replaces="not a Pallas kernel: uvaia_tpu/ops/gotoh.py "
+                 "gotoh_traceback_events (lax.while_loop)",
+        wrapper=gotoh_kernels.walk_events),
 }
 NEAREST_KERNELS = ("score_counters", "score_counters_packed", "amb_corr",
                    "delta_rebuild")
@@ -1328,6 +1340,73 @@ def phase_gotoh(dev, rng, records: dict) -> None:
         torch.cuda.empty_cache()
 
 
+# Dependent integer operations of one events-walk iteration, counted on
+# csrc/walk.cu's chain from a state to the next (probe address, clamp,
+# run predicate, ballot, trailing ones, cap, landing state, next kind),
+# memory latency left out: a loose lower bound of a latency-bound walk.
+WALK_CHAIN_OPS = 16
+# (lo, W, B) of the walks timed at the full reference length: the first
+# band level of the benchmark's trimmed-ends rows, the escalation width
+# and an exact-fallback width, each at its dispatch chunk's rows
+WALK_SHAPES = ((-256, 513, 64), (-512, 1024, 64), (-1024, 2049, 32))
+
+
+def phase_walk(dev, rng, records: dict) -> None:
+    """The events walk kernel vs its plain version on the same tensors,
+    exact at all six outputs, on the forward kernel's traceback bytes at
+    n = 29,903 for each of WALK_SHAPES (K = EV_CAP, and K = 3, where
+    rows overflow) and on random bytes at n = 2,000 (rows that get stuck
+    and stop at the cap).  Kernel times are CUDA-event medians of the
+    whole wrapper (flags and walk), the plain version's one call with
+    its iterations (the slowest row's, in steps of HOST_READ_EVERY)."""
+    ref = ACGT[rng.integers(0, 4, N_REF)].tobytes()
+    ref_d = torch.from_numpy(np.frombuffer(ref, np.uint8).copy()).to(dev)
+    K = gotoh.EV_CAP
+    for lo, W, B in WALK_SHAPES:
+        arr, lens = gotoh_batch(rng, ref, B, N_REF + 256)
+        tb, _, t_end, _ = gotoh_kernels.gotoh_forward(
+            ref_d, torch.from_numpy(arr).to(dev),
+            torch.from_numpy(lens).to(dev), lo, W)
+        args = (tb, t_end, lo, N_REF)
+        before = gotoh.walk_counts["iterations"]
+        want, plain_ms = timed_once(
+            lambda: gotoh_kernels.walk_events_plain(*args, K))
+        iters = gotoh.walk_counts["iterations"] - before
+        err = max_err(gotoh_kernels.walk_events(*args, K), want)
+        max_err(gotoh_kernels.walk_events(*args, 3),
+                gotoh_kernels.walk_events_plain(*args, 3))
+        ms = timed_ms(lambda: gotoh_kernels.walk_events(*args, K))
+        flags_ms = timed_ms(lambda: gotoh_kernels.allm_flags(tb, N_REF))
+        bnd = bound(B * iters * gotoh.PROBE,
+                    chain_ops=iters * WALK_CHAIN_OPS)
+        shape = f"B={B} n={N_REF} lo={lo} W={W}"
+        log(f"  walk_events {shape}: max_abs_err={err} (K={K} and K=3), "
+            f"kernel {ms:.3f} ms (flags {flags_ms:.3f} ms), plain "
+            f"{plain_ms:.3f} ms ({iters} iterations, done "
+            f"{int(want[3].sum())}/{B}), library none, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rec = dict(shape=shape, max_abs_err=err, ms=ms, kernel_ms=ms,
+                   flags_ms=flags_ms, plain_ms=plain_ms, iterations=iters,
+                   library_ms=None, **bnd)
+        if W == 513:
+            records["walk_events"].update(rec)
+        else:
+            records["walk_events"].setdefault("other_shapes", []).append(rec)
+        del tb, want, args
+        torch.cuda.empty_cache()
+    n, lo, W, B = 2000, -256, 513, 64
+    tb = torch.from_numpy(rng.integers(0, 32, (n, B, W)).astype(
+        np.uint8)).to(dev)
+    t_end = torch.from_numpy(rng.integers(-3, W + 3, B).astype(
+        np.int32)).to(dev)
+    for K in (gotoh.EV_CAP, 3):
+        want = gotoh_kernels.walk_events_plain(tb, t_end, lo, n, K)
+        max_err(gotoh_kernels.walk_events(tb, t_end, lo, n, K), want)
+    log(f"  walk_events on random bytes B={B} n={n} lo={lo} W={W}: equal "
+        f"at K={gotoh.EV_CAP} and K=3 ({int((~want[3]).sum())} rows never "
+        f"finish)")
+
+
 def phase_align_oracle(dev, rng) -> int:
     """align_batch (forward kernel + event traceback + host decode) and
     the score-only kernel on the card against the O(nm) oracle; returns
@@ -1396,9 +1475,10 @@ def align_queries(rng, ref: bytes, count: int):
     return recs
 
 
-def phase_align_scale(dev, card: str, work: dict) -> int:
+def phase_align_scale(dev, card: str, work: dict) -> tuple[int, int]:
     """`align` through the command line at scale on the card; returns
-    gotoh_forward's launches over the run."""
+    gotoh_forward's and walk_events' launches over the run (every events
+    walk of the run goes through the kernel)."""
     pool = 1024
     ref, q_fa, n_q = work["ref"], work["q_fa"], work["count"]
     calls = {"dense": 0, "escalate": 0, "cap_band": 0}
@@ -1410,8 +1490,18 @@ def phase_align_scale(dev, card: str, work: dict) -> int:
             return fn(*a, **kw)
         return wrapped
 
-    orig = (gotoh.align_rows_dense, align._align_group, align._choose_band)
+    calls["events_walk"] = 0
+    padded = {"rows": 0}
+
+    def align_rows(ref_d, arr_d, lens_d, idx, *a, **kw):
+        padded["rows"] += idx.shape[0]
+        return orig[4](ref_d, arr_d, lens_d, idx, *a, **kw)
+
+    orig = (gotoh.align_rows_dense, align._align_group, align._choose_band,
+            gotoh.gotoh_traceback_events, gotoh.align_rows)
     gotoh.align_rows_dense = counting(orig[0], "dense")
+    gotoh.gotoh_traceback_events = counting(orig[3], "events_walk")
+    gotoh.align_rows = align_rows
     align._align_group = counting(orig[1], "escalate",
                                   lambda *a, exact=False, **kw: not exact)
     align._choose_band = counting(orig[2], "cap_band")
@@ -1426,6 +1516,8 @@ def phase_align_scale(dev, card: str, work: dict) -> int:
     out = WORK / "al_cuda"
     try:
         gotoh_kernels.gotoh_forward.launches = 0
+        gotoh_kernels.walk_events.launches = 0
+        walked = dict(gotoh.walk_counts)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli_main(["align", "-r", str(WORK / "al_ref.fa"), str(q_fa),
@@ -1433,9 +1525,11 @@ def phase_align_scale(dev, card: str, work: dict) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = gotoh_kernels.gotoh_forward.launches
+        walks = gotoh_kernels.walk_events.launches
+        walked = {k: v - walked[k] for k, v in gotoh.walk_counts.items()}
     finally:
-        (gotoh.align_rows_dense, align._align_group,
-         align._choose_band) = orig
+        (gotoh.align_rows_dense, align._align_group, align._choose_band,
+         gotoh.gotoh_traceback_events, gotoh.align_rows) = orig
         align.run_align = run
     if rc != 0:
         raise AssertionError(f"align exited {rc}")
@@ -1448,7 +1542,16 @@ def phase_align_scale(dev, card: str, work: dict) -> int:
         f"{st.uncertified} exact_certified={st.exact_certified}; dense "
         f"walks {calls['dense']}, escalations {calls['escalate']}, "
         f"cap-band groups {calls['cap_band']}; gotoh_forward launches "
-        f"{launches}")
+        f"{launches}, walk_events launches {walks} of {calls['events_walk']}"
+        f" events walks; the torch walks (dense only) {walked}")
+    job = observe.jobs()[-1]
+    log(f"  the align job's walk_kernel_rows "
+        f"{job.counts.get('walk_kernel_rows')}, padded rows dispatched "
+        f"{padded['rows']}")
+    if job.tool != "align" or job.counts.get("walk_kernel_rows") != \
+            padded["rows"]:
+        raise AssertionError("walk_kernel_rows is not the padded rows the "
+                             "align job dispatched")
     recs = work["cuda_recs"] = read_xz_records(
         out.parent / (out.name + ".aln.xz"))
     if len(recs) != st.n_output or st.n_output != st.count - 2:
@@ -1463,7 +1566,10 @@ def phase_align_scale(dev, card: str, work: dict) -> int:
         raise AssertionError(f"a branch was not taken: {st} {calls}")
     if launches == 0:
         raise AssertionError("gotoh_forward never launched in the run")
-    return launches
+    if walks != calls["events_walk"] or walks == 0:
+        raise AssertionError(f"{walks} walk_events launches for "
+                             f"{calls['events_walk']} events walks")
+    return launches, walks
 
 
 def start_cpu_subset(rng, n_ref: int = N_REF, count: int = 2048) -> dict:
@@ -1766,6 +1872,7 @@ def run(dev: torch.device, card: str) -> dict:
         phase_kernels(dev, rng, BATCH, L_SITES, (64, 1000, 7, 129), records)
         lap("nearest kernels")
         phase_gotoh(dev, rng, records)
+        phase_walk(dev, rng, records)
         lap("previous phase")
         log("phase 3: nearest vs oracle, full mode and --acgt")
         phase_oracle(dev, rng, L_SITES)
@@ -1783,7 +1890,8 @@ def run(dev: torch.device, card: str) -> dict:
         records["gotoh_score"]["launches"] = phase_align_oracle(dev, rng)
         lap("previous phase")
         log("phase 7: align at scale, cuda vs cpu")
-        records["gotoh_forward"]["launches"] = phase_align_scale(
+        (records["gotoh_forward"]["launches"],
+         records["walk_events"]["launches"]) = phase_align_scale(
             dev, card, work)
         finish_cpu_subset(work)
         lap("phase 7")

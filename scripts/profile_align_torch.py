@@ -5,13 +5,14 @@
 Generates chip_smoke.py's phase-7 data (synthetic SARS-CoV-2-length
 queries against a 29,903-bp reference, fixed seed), then runs the
 port's `run_align` on the card four times, pool 1024:
-  1. plain: wall time and seqs/s, then the same with the walks'
-     iterations launched op by op instead of replayed from a CUDA graph;
+  1. plain: wall time and seqs/s, then the same with the dense walk's
+     iterations launched op by op instead of replayed from a CUDA graph
+     (the events walk is one kernel, csrc/walk.cu, either way);
   2. with host timers around each stage: host read + QC (the reader's
      work, timed alone on the same file), the upload, the forward (the
-     wrapper, synchronised), the traceback-events loop and the dense
-     walk (with their loop iterations and host reads of the loop
-     condition), host decode_events and the writer;
+     wrapper, synchronised), the events walk (flags and walk kernels)
+     and the dense walk (with its loop iterations and host reads of the
+     loop condition), host decode_events and the writer;
   3. under torch.profiler (CUDA activity): device busy time (kernels,
      copies, memsets) against the wall time, and device time by kernel
      (summed from the raw events: a run launches ~10^5-10^6 small ops,
@@ -96,7 +97,7 @@ def main() -> int:
             stats, wall = run_once(ref_fa, q_fa, "eager")
         finally:
             gotoh._capture_step = capture
-        print(json.dumps({"run": "plain, walks launched op by op",
+        print(json.dumps({"run": "plain, dense walk launched op by op",
                           "device": dev, "wall_s": wall,
                           "seqs_per_s": args.queries / wall,
                           "n_output": stats.n_output}), flush=True)

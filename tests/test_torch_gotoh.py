@@ -23,6 +23,7 @@ from uvaia_tpu.ops import gotoh as jg
 from uvaia_tpu.ops import pallas_gotoh
 from uvaia_tpu_torch.ops import gotoh as pg
 from uvaia_tpu_torch.ops import gotoh_kernels as gk
+from uvaia_tpu_torch.utils import observe
 
 from test_gotoh import oracle_score, rand_dna
 from torch_cases import GAP_CASES, gap_case
@@ -195,6 +196,199 @@ def test_walks_match_jax_on_arbitrary_traceback_bytes(seed):
                jg.gotoh_traceback_events(*_j(tb, t_end), lo, n, K))
     _equal(pg.gotoh_traceback(*_t(tb, ref, arr, t_end), lo, n),
            jg.gotoh_traceback(*_j(tb, ref, arr, t_end), lo, n))
+
+
+def _corrupt_walk_inputs(seed, n, B, W, lo):
+    """(tb, t_end): random bytes (every source, source 3 included, both
+    extension bits), mostly-M stretches on odd seeds, and two rows that
+    no walk can finish: one starting left of column 0 and one in front
+    of a source-3 byte."""
+    rng = np.random.default_rng(seed)
+    tb = rng.integers(0, 32, (n, B, W)).astype(np.uint8)
+    if seed % 2:
+        tb &= ~np.uint8(3 * (rng.random((n, B, W)) < 0.8))
+    t_end = rng.integers(0, W, B).astype(np.int32)
+    t_end[0] = -n - lo - 5                       # j < 0 at i = n
+    tb[n - 1, 1, min(max(int(t_end[1]), 0), W - 1)] |= 3
+    return tb, t_end
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_events_walk_rows_are_independent(seed):
+    """What the kernel's loop of one row relies on: the plain events
+    walk of a batch equals, row by row, the walk of each row alone,
+    on rows that finish, rows that overflow K and rows of corrupt bytes
+    that stay active to the iteration cap.  On CPU tensors the kernel
+    wrapper runs the plain walk: no launch, no walk_kernel_rows."""
+    n, B, lo, W = 30, 12, -6, 11
+    tb, t_end = _corrupt_walk_inputs(seed, n, B, W, lo)
+    launches = gk.walk_events.launches
+    with observe.job("align") as root:
+        batch = [x.numpy() for x in pg.gotoh_traceback_events(
+            *_t(tb, t_end), lo, n, 3)]
+    assert "walk_kernel_rows" not in root.counts
+    assert gk.walk_events.launches == launches
+    cap = pg.events_cap(n, W)
+    for b in range(B):
+        before = pg.walk_counts["iterations"]
+        alone = gk.walk_events(*_t(np.ascontiguousarray(tb[:, b:b + 1]),
+                                   t_end[b:b + 1]), lo, n, 3)
+        for whole, one in zip(batch, alone, strict=True):
+            np.testing.assert_array_equal(whole[b:b + 1], one.numpy())
+        if b < 2:                          # never finish: walked to the cap
+            assert not alone[3].item()
+            assert pg.walk_counts["iterations"] - before == cap
+    assert batch[5].any() and batch[3].any()   # some overflow, some finish
+
+
+def _ones_from_bit0(lo_bits: int, hi_bits: int) -> int:
+    """trailing_ones of csrc/walk.cu: set bits of a 128-bit mask from
+    bit 0 up to the first clear one."""
+    bits = lo_bits | (hi_bits << 64)
+    k = 0
+    while k < 128 and (bits >> k) & 1:
+        k += 1
+    return k
+
+
+def _kernel_walk(tb, t_end, lo, n, K):
+    """csrc/walk.cu's walk_events_kernel restated in Python, row by row
+    and lane by lane: lane k of the warp holds probe cells k + 32 s,
+    four ballots make the run's 128-bit mask, the landing byte comes
+    from the probe (a shuffle) unless the run used all of it or jumped
+    a block, and a row stops when inactive, at the cap, or at an
+    iteration that changes nothing."""
+    _, B, W = tb.shape
+    allm1, allm2 = (x.numpy() for x in
+                    pg._all_m_blocks(torch.from_numpy(tb), n)[2:])
+    n1, n2 = allm1.shape[0], allm2.shape[0]
+    cl = lambda v, a, b: min(max(v, a), b)
+    i32 = lambda v: (v + (1 << 31)) % (1 << 32) - (1 << 31)
+    out = [np.zeros((B, K), np.int32), np.zeros((B, K), np.int32),
+           np.zeros(B, np.int32), np.zeros(B, bool), np.zeros(B, bool),
+           np.zeros(B, bool)]
+    for b in range(B):
+        def read(i, t):
+            return int(tb[cl(i - 1, 0, n - 1), b, cl(t, 0, W - 1)])
+        i, t = n, int(t_end[b])
+        mat, kprev, cnt, edge, ovf = read(i, t) & 3, -1, 0, False, False
+        for _ in range(pg.events_cap(n, W)):
+            j = i + t + lo
+            if not (i > 0 or j > 0):
+                break
+            lead_y, col0_x, inner = i == 0, i > 0 and j == 0, i > 0 and j > 0
+            is_m, is_x, is_y = (inner and mat == 0, inner and mat == 1,
+                                inner and mat == 2)
+            kind = 0 if is_m else 1 if (is_x or col0_x) else 2
+            if kprev >= 0 and kind != kprev:
+                if cnt < K:
+                    out[0][b, cnt], out[1][b, cnt] = i32(i), i32(t)
+                else:
+                    ovf = True
+                cnt += 1
+            kprev = kind
+            r, ni, di, dt, nmat = 0, i, 0, 0, mat
+            if is_m or is_x or is_y:
+                di, dt = (0 if is_y else 1), (1 if is_x else -1 if is_y else 0)
+                tcl = cl(t, 0, W - 1)
+                blk1 = min((i - 1) // 256, n1 - 1)
+                blk2 = min((i - 1) // 4096, n2 - 1)
+                flags = (int(allm1[blk1, b, tcl]) | int(allm2[blk2, b, tcl]) << 1
+                         if is_m else 0)
+                v = [[int(tb[cl(i - 1 - (ln + 32 * s) * di, 0, n - 1), b,
+                             cl(t + (ln + 32 * s) * dt, 0, W - 1)])
+                      for ln in range(32)] for s in range(4)]
+                shift = 2 if is_x else 3
+                ballot = [sum(((x & 3) == 0 if is_m else (x >> shift) & 1) << ln
+                              for ln, x in enumerate(v[s])) for s in range(4)]
+                plo, phi = ballot[0] | ballot[1] << 32, ballot[2] | ballot[3] << 32
+                ones = _ones_from_bit0(plo, phi)
+                lim = min(i, j) if is_m else i if is_x else j
+                runlen = min(ones if is_m else min(ones + 1, 128), lim)
+                r = runlen
+                if is_m:
+                    i2 = i - runlen
+                    if flags & 1:
+                        i2 = min(i2, blk1 * 256)
+                    if flags & 2:
+                        i2 = min(i2, blk2 * 4096)
+                    ni = max(i2, max(-t - lo, 0))
+                else:
+                    ni = i - r * di
+                ext = not is_m and ((plo | phi << 64) >> (runlen - 1)) & 1
+                if ext:
+                    nmat = 1 if is_x else 2
+                else:
+                    if runlen < 128 and ni == i - runlen * di:
+                        nxt = v[runlen >> 5][runlen & 31]
+                    else:
+                        nxt = read(ni, t + r * dt)
+                    nmat = (nxt >> 4) & 1 if is_y else nxt & 3
+            elif lead_y:
+                r, dt = j, -1
+            elif col0_x:
+                r, di, dt, ni = i, 1, 1, 0
+            span = dt * max(r - 1, 0)
+            edge = edge or (i > 0 and (t + min(span, 0) <= 0
+                                       or t + max(span, 0) >= W - 1))
+            nt = t + r * dt
+            if (ni, nt, nmat) == (i, t, mat):
+                break
+            i, t, mat = ni, nt, nmat
+        out[2][b], out[3][b] = i32(cnt), i == 0 and i + t + lo == 0
+        out[4][b], out[5][b] = edge, ovf
+    return out
+
+
+def _long_m_inputs(seed, n, B, W):
+    """(tb, t_end) of n rows, mostly M-sourced: whole 256- and 4096-row
+    blocks all M at some slots, an X and a Y run and stray bytes
+    elsewhere; every row's walk finishes."""
+    rng = np.random.default_rng(seed)
+    tb = np.zeros((n, B, W), np.uint8)
+    noisy = rng.random((n, B, W)) < 0.002
+    v = rng.integers(0, 32, int(noisy.sum())).astype(np.uint8)
+    tb[noisy] = np.where((v & 3) == 3, v & 0x1C, v)      # no source 3
+    for b in range(B):
+        r0 = int(rng.integers(0, n - 200))
+        tb[r0:r0 + 150, b, :] = 1 | 4 | 16                   # X run
+        tb[r0 + 150, b, :] = 2 | 8                           # Y run
+    return tb, rng.integers(0, W, B).astype(np.int32)
+
+
+@pytest.mark.parametrize("K", [jg.EV_CAP, 3])
+@pytest.mark.parametrize("case", ["forward", "gaps", "corrupt", "corrupt_m",
+                                  "long_m"])
+def test_walk_kernel_schedule_matches_plain(case, K):
+    """The walk kernel's schedule (lanes, ballots, the landing byte from
+    the probe, the block jumps, the stop at an idle iteration) equals
+    the plain events walk, on forward-made bytes, paths with gap runs
+    longer than the probe, corrupt bytes and rows long enough for the
+    4096-row blocks."""
+    if case == "forward":
+        n, lo, W = 300, -64, 129
+        ref, arr, lens = _inputs(90, n, 13)
+        tb, _, t_end, _ = gk.gotoh_forward(*_t(ref, arr, lens), lo, W)
+        tb, t_end = tb.numpy(), t_end.numpy()
+    elif case == "gaps":
+        ref, arr, lens, lo, W = gap_case("x_then_y")
+        n = len(ref)
+        tb, _, t_end, _ = gk.gotoh_forward(*_t(ref, arr, lens), lo, W)
+        tb, t_end = tb.numpy(), t_end.numpy()
+    elif case.startswith("corrupt"):
+        n, lo, W = 40, -9, 17
+        tb, t_end = _corrupt_walk_inputs(int(case == "corrupt_m"), n, 7, W,
+                                         lo)
+    else:
+        n, lo, W = 9000, -4, 9
+        tb, t_end = _long_m_inputs(5, n, 6, W)
+    want = gk.walk_events_plain(*_t(tb, t_end), lo, n, K)
+    got = _kernel_walk(tb, t_end, lo, n, K)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g, w.numpy())
+    if case == "long_m":
+        assert want[3].all() and pg._all_m_blocks(
+            torch.from_numpy(tb), n)[3].any()
 
 
 @pytest.mark.parametrize("every", [1, 5, 64])

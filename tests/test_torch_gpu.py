@@ -22,6 +22,7 @@ from uvaia_tpu_torch.engine.query import QueryPack
 from uvaia_tpu_torch.ops import gotoh, gotoh_kernels as gk
 from uvaia_tpu_torch.ops import host, recon, scan, score_kernels as sk
 from uvaia_tpu_torch.parallel import mesh as pmesh
+from uvaia_tpu_torch.utils import observe
 
 import torch_cases
 
@@ -474,6 +475,9 @@ def test_gpu_walks_on_arbitrary_traceback_bytes(cuda_device, seed):
 
 @pytest.mark.gpu
 def test_gpu_walks_read_the_host_rarely(cuda_device, monkeypatch):
+    """The dense walk reads its loop condition once every HOST_READ_EVERY
+    iterations; the events walk, one kernel, adds no iteration and no
+    host read."""
     rng = np.random.default_rng(12)
     ref, arr, lens = _gotoh_inputs(rng, 2000, 64, cuda_device)
     tb, _, t_end, _ = gk.gotoh_forward(ref, arr, lens, -64, 129)
@@ -481,10 +485,58 @@ def test_gpu_walks_read_the_host_rarely(cuda_device, monkeypatch):
     for every in (1, 32):
         monkeypatch.setattr(gotoh, "HOST_READ_EVERY", every)
         before = dict(gotoh.walk_counts)
-        _equal(_walks(tb, ref, arr, t_end, -64, 2000, 4), want)
+        got = gotoh.gotoh_traceback_events(tb, t_end, -64, 2000, 4)
+        assert gotoh.walk_counts == before
+        got += gotoh.gotoh_traceback(tb, ref, arr, t_end, -64, 2000)
+        _equal(got, want)
         iters = gotoh.walk_counts["iterations"] - before["iterations"]
         reads = gotoh.walk_counts["host_reads"] - before["host_reads"]
-        assert reads == iters // every + 2
+        assert reads == iters // every + 1
+
+
+# (n, lo, W, B): the first band level, the escalation width, a band wider
+# than the probe's reach, one row, batches that are no multiple of 32
+WALK_CASES = [(300, -64, 129, 13), (2000, -256, 513, 64),
+              (2000, -512, 1024, 33), (600, -1024, 2049, 5),
+              (5000, -64, 129, 1), (4500, -8, 17, 100)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [gotoh.EV_CAP, 3])
+@pytest.mark.parametrize("n,lo,width,B", WALK_CASES)
+def test_gpu_walk_kernel_matches_plain(cuda_device, n, lo, width, B, K):
+    """The walk kernel against the plain events walk on the same card
+    tensors, every output equal: on the forward's traceback bytes and on
+    random bytes of the same shape (rows that overflow K = 3, leave the
+    band, get stuck and stop at the cap); its all-M flags equal the
+    plain version's; one launch a call."""
+    rng = np.random.default_rng(n + width + B)
+    ref, arr, lens = _gotoh_inputs(rng, max(n, 64), B, cuda_device)
+    tb, _, t_end, _ = gk.gotoh_forward(ref[:n].contiguous(), arr, lens,
+                                       lo, width)
+    noise = torch.from_numpy(rng.integers(0, 32, tuple(tb.shape)).astype(
+        np.uint8)).to(cuda_device)
+    shift = torch.from_numpy(rng.integers(-3, width + 3, B).astype(
+        np.int32)).to(cuda_device)
+    for tb_x, t_x in ((tb, t_end), (noise, shift)):
+        before = gk.walk_events.launches
+        got = gk.walk_events(tb_x, t_x, lo, n, K)
+        assert gk.walk_events.launches == before + 1
+        _equal(got, gotoh.walk_events_plain(tb_x, t_x, lo, n, K))
+        _equal(gk.allm_flags(tb_x, n),
+               [x.to(torch.uint8) for x in gotoh._all_m_blocks(tb_x, n)[2:]])
+
+
+@pytest.mark.gpu
+def test_gpu_walk_kernel_counts_its_rows(cuda_device):
+    rng = np.random.default_rng(3)
+    ref, arr, lens = _gotoh_inputs(rng, 400, 37, cuda_device)
+    tb, _, t_end, _ = gk.gotoh_forward(ref, arr, lens, -64, 129)
+    with observe.job("align") as root:
+        gotoh.gotoh_traceback_events(tb, t_end, -64, 400, 8)
+        gotoh.gotoh_traceback_events(tb[:, :5].contiguous(),
+                                     t_end[:5].contiguous(), -64, 400, 8)
+    assert root.counts["walk_kernel_rows"] == 42
 
 
 @pytest.mark.gpu

@@ -47,6 +47,9 @@ _SIGNATURES = {
                           _P, _I, _I, _P],
     "uvt_gotoh_score": [_P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I,
                         _P],
+    "uvt_allm_flags": [_P, _I, _I, _I, _P, _P, _P],
+    "uvt_walk_events": [_P, _I, _I, _I, _P, _I, _I, _P, _P, _L, _P, _P, _P,
+                        _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

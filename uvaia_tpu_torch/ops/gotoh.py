@@ -8,7 +8,9 @@ The counterpart of ``uvaia_tpu/ops/gotoh.py``.  Two halves:
   machine does not have;
 * device (torch ops): the traceback walks, the sparse output encoding
   and the group aligners around the forward DP of
-  :mod:`.gotoh_kernels`.  These were XLA ops in the JAX package, not
+  :mod:`.gotoh_kernels`, which also runs the events walk as a CUDA
+  kernel on the card (the torch walk here is its plain version).
+  These were XLA ops in the JAX package, not
   Pallas kernels: ``lax.while_loop`` is a Python ``while`` that reads
   ``any(active)`` on the host every few iterations (and, on a CUDA
   device, replays one captured iteration from a CUDA graph), a dropping
@@ -406,22 +408,44 @@ def _all_m_blocks(tb: torch.Tensor, n: int):
     return BL1, BL2, allm1, allm2
 
 
+def events_cap(n: int, W: int) -> int:
+    """The events walk's cap on iterations a row: it only stops rows of
+    a corrupt traceback (done=False)."""
+    return 2 * n + 2 * W + 8
+
+
 def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
                            n: int, K: int):
     """Event-list traceback: O(#gap runs) instead of O(path length).
 
     Records only the (i, t) checkpoints where the move kind (M / X / Y)
     changes; the host rebuilds the row from the query bytes it already
-    holds (decode_events).  Pure-diagonal stretches are skipped with the
-    hierarchical all-M flags (one 256-row or 4096-row block per
-    iteration) and a PROBE-byte line probe for partial blocks; a gap run
-    retires PROBE cells an iteration, a leading insertion or deletion
-    all of its cells at once.  A run retired whole records its one
-    checkpoint where it starts, as the cell-by-cell walk does.
+    holds (decode_events).  The walk of :func:`walk_events_plain`, run
+    by :func:`.gotoh_kernels.walk_events`: the kernel of csrc/walk.cu
+    for CUDA tensors, the plain version for CPU tensors.
 
     Returns (ev_i (B,K) int32, ev_t (B,K) int32, cnt (B,) int32,
     done (B,) bool, edge (B,) bool, overflow (B,) bool).  Rows with
     overflow=True exceeded K checkpoints and must be re-walked densely.
+    """
+    from . import gotoh_kernels
+    return gotoh_kernels.walk_events(tb, t_end, lo, n, K)
+
+
+def walk_events_plain(tb: torch.Tensor, t_end: torch.Tensor, lo: int, n: int,
+                      K: int):
+    """The events walk in torch ops: the CPU path, and the reference the
+    kernel is held against on the card.
+
+    Pure-diagonal stretches are skipped with the hierarchical all-M
+    flags (one 256-row or 4096-row block per iteration) and a
+    PROBE-byte line probe for partial blocks; a gap run retires PROBE
+    cells an iteration, a leading insertion or deletion all of its cells
+    at once.  A run retired whole records its one checkpoint where it
+    starts, as the cell-by-cell walk does.  An inactive row is a fixed
+    point of the body, so each row's outputs are those of its own walk,
+    whatever the other rows of the batch: the kernel walks each row on
+    its own, to the same cap of iterations.
     """
     _, B, W = tb.shape
     dev = tb.device
@@ -480,9 +504,8 @@ def gotoh_traceback_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int,
              torch.full((B,), -1, dtype=torch.long, device=dev), zeros(B),
              zeros(B, K + 1), zeros(B, K + 1), zeros(B, dt=torch.bool),
              zeros(B, dt=torch.bool))
-    # the cap only guards against a corrupt traceback (done=False rows)
     i, t, _, _, cnt, ev_i, ev_t, edge, ovf = _walk(
-        body, carry, lo, 2 * n + 2 * W + 8)
+        body, carry, lo, events_cap(n, W))
     done = (i == 0) & ((i + t + lo) == 0)
     i32 = torch.int32
     return (ev_i[:, :K].to(i32), ev_t[:, :K].to(i32), cnt.to(i32), done,

@@ -1,15 +1,22 @@
-"""Banded affine Gotoh forward: kernels and their plain PyTorch versions.
+"""Banded affine Gotoh forward and the events traceback walk: kernels
+and their plain PyTorch versions.
 
 * :func:`gotoh_forward` (csrc/gotoh.cu, traceback-emitting) replaces
   ``uvaia_tpu/ops/pallas_gotoh.py:_fwd_kernel``;
 * :func:`gotoh_score` (csrc/gotoh.cu, score only) replaces
-  ``pallas_gotoh.py:_score_kernel``.
+  ``pallas_gotoh.py:_score_kernel``;
+* :func:`walk_events` (csrc/walk.cu) walks the traceback buffer into
+  the events form on the card; it replaces no Pallas kernel but the
+  ``lax.while_loop`` of ``uvaia_tpu.ops.gotoh.gotoh_traceback_events``,
+  whose torch version, :func:`.gotoh.walk_events_plain`, is its plain
+  version.
 
-Both compute the row recurrence of ``uvaia_tpu.ops.gotoh._row_kernel``
-(match 0, mismatch 4, gap of length g costs 6 + 2g; band slot t of row
-i is column j = i + lo + t) with the same int32 saturation points and
-tie rules, so a kernel equals its plain version at every cell of the
-traceback buffer, not only at the cells a walk reaches.
+The two forward kernels compute the row recurrence of
+``uvaia_tpu.ops.gotoh._row_kernel`` (match 0, mismatch 4, gap of length
+g costs 6 + 2g; band slot t of row i is column j = i + lo + t) with the
+same int32 saturation points and tie rules, so a kernel equals its
+plain version at every cell of the traceback buffer, not only at the
+cells a walk reaches.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and counts the
 launch in its ``launches`` attribute; for CPU tensors it runs the plain
@@ -21,8 +28,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import observe
 from . import _build
-from .gotoh import GAP_EXT, GAP_OPEN, INF, MISMATCH, OE
+from .gotoh import (GAP_EXT, GAP_OPEN, INF, MISMATCH, OE, events_cap,
+                    walk_events_plain)
 
 # The register kernel of csrc/gotoh.cu keeps a thread's band slots in
 # registers: these slot counts are compiled, for one warp a query row
@@ -243,3 +252,62 @@ def gotoh_score(ref: torch.Tensor, q: torch.Tensor, qlen: torch.Tensor,
 
 
 gotoh_score.launches = 0
+
+
+def allm_flags(tb: torch.Tensor, n: int):
+    """The events walk's all-M flags from the kernel of csrc/walk.cu:
+    (allm1 (n1, B, W), allm2 (n2, B, W)) uint8, as
+    gotoh._all_m_blocks (n1 = ceil(n / 256), n2 = ceil(n1 / 16))."""
+    _, B, W = tb.shape
+    n1 = -(-n // 256)
+    n2 = -(-n1 // 16)
+    allm1 = torch.empty((n1, B, W), dtype=torch.uint8, device=tb.device)
+    allm2 = torch.empty((n2, B, W), dtype=torch.uint8, device=tb.device)
+    _build.check(_build.lib().uvt_allm_flags(
+        tb.data_ptr(), n, B, W, allm1.data_ptr(), allm2.data_ptr(),
+        _build.stream_ptr(tb)), "allm_flags")
+    return allm1, allm2
+
+
+def walk_events(tb: torch.Tensor, t_end: torch.Tensor, lo: int, n: int,
+                K: int):
+    """The events traceback walk (gotoh.gotoh_traceback_events) of
+    tb (n, B, W) uint8 from (n, t_end (B,) int32): (ev_i (B, K) int32,
+    ev_t (B, K) int32, cnt (B,) int32, done, edge, ovf (B,) bool),
+    equal to gotoh.walk_events_plain's on any bytes.  On the card two
+    launches on the current stream, the all-M flags and the walk, and
+    no host read."""
+    if not _build.use_kernel(tb):
+        return walk_events_plain(tb, t_end, lo, n, K)
+    if tb.dtype != torch.uint8 or tb.dim() != 3 or tb.shape[0] != n:
+        raise ValueError(f"tb must be a ({n}, B, W) uint8 tensor")
+    _, B, W = tb.shape
+    if t_end.dtype != torch.int32 or t_end.shape != (B,):
+        raise ValueError(f"t_end must be ({B},) int32")
+    if t_end.device != tb.device:
+        raise ValueError("tb and t_end must share one device")
+    if not (tb.is_contiguous() and t_end.is_contiguous()):
+        raise ValueError("tb and t_end must be contiguous")
+    if n < 1 or K < 0:
+        raise ValueError(f"n = {n} must be at least 1 and K = {K} not "
+                         "negative")
+    dev = tb.device
+    ev_i, ev_t = (torch.empty((B, K), dtype=torch.int32, device=dev)
+                  for _ in range(2))
+    cnt = torch.empty(B, dtype=torch.int32, device=dev)
+    done, edge, ovf = (torch.empty(B, dtype=torch.bool, device=dev)
+                       for _ in range(3))
+    if B == 0:
+        return ev_i, ev_t, cnt, done, edge, ovf
+    allm1, allm2 = allm_flags(tb, n)
+    _build.check(_build.lib().uvt_walk_events(
+        tb.data_ptr(), n, B, W, t_end.data_ptr(), lo, K, allm1.data_ptr(),
+        allm2.data_ptr(), events_cap(n, W), ev_i.data_ptr(), ev_t.data_ptr(),
+        cnt.data_ptr(), done.data_ptr(), edge.data_ptr(), ovf.data_ptr(),
+        _build.stream_ptr(tb)), "walk_events")
+    walk_events.launches += 1
+    observe.count("walk_kernel_rows", B)
+    return ev_i, ev_t, cnt, done, edge, ovf
+
+
+walk_events.launches = 0
