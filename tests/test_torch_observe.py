@@ -14,6 +14,7 @@ import torch
 
 from uvaia_tpu_torch.cli import main as port_main
 from uvaia_tpu_torch.io.store import ingest
+from uvaia_tpu_torch.ops import host, scan
 from uvaia_tpu_torch.utils import observe
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -213,6 +214,82 @@ def test_nearest_job_counts_agree_with_its_outputs(tmp_path, monkeypatch,
     want = NEAREST_SPANS | ({"retain", "flush"} if prune else set())
     assert want <= names, want - names
     assert _children_cover(job) >= 0.95
+
+
+UPLOAD_COUNTS = ("delta_batches", "packed_batches", "delta_rows",
+                 "delta_slots")
+
+
+@pytest.mark.parametrize("case", ["fasta", "store", "fasta_trace_off"])
+def test_nearest_stream_spans_and_upload_counters(tmp_path, monkeypatch,
+                                                  capsys, case):
+    """The FASTA stream's reader thread records `stream_read` and the
+    encode pool `delta_encode`; the upload counters add up to the
+    batches and to the (pos, val) shapes the scan was given, on both
+    streams; with the trace off no job is recorded."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("UVAIA_TPU_ENCODE_THREADS", "2")
+    if case.endswith("trace_off"):
+        monkeypatch.setenv("UVAIA_TPU_TRACE", "0")
+    db = _nearest_files(case == "store")
+    encode = host.delta_encode
+    calls = {"n": 0}
+
+    def every_third_packed(*a, **kw):
+        # the 4-bit packed fallback for every third batch
+        calls["n"] += 1
+        return None if calls["n"] % 3 == 0 else encode(*a, **kw)
+    monkeypatch.setattr(host, "delta_encode", every_third_packed)
+    shapes, packed = [], []
+    prune_delta, prune_packed = scan.prune_and_hold_delta, \
+        scan.prune_and_hold
+
+    def spy_delta(qd, state, pos, val, ok):
+        shapes.append(tuple(pos.shape))
+        return prune_delta(qd, state, pos, val, ok)
+
+    def spy_packed(qd, state, codes, ok):
+        packed.append(codes.shape[0])
+        return prune_packed(qd, state, codes, ok)
+    monkeypatch.setattr(scan, "prune_and_hold_delta", spy_delta)
+    monkeypatch.setattr(scan, "prune_and_hold", spy_packed)
+    before = observe.jobs()[-1:]
+    capsys.readouterr()
+    assert _nearest(db, True) == 0
+    err = capsys.readouterr().err
+    if case.endswith("trace_off"):
+        assert observe.jobs()[-1:] == before and "Trace:" not in err
+        assert shapes and packed
+        return
+    job = observe.jobs()[-1]
+    c = job.counts
+    n_packed = c.get("packed_batches", 0)
+    assert c["delta_batches"] == len(shapes) and n_packed == len(packed)
+    assert c["delta_batches"] + n_packed == c["batches"] == 8
+    assert c["delta_rows"] == sum(b for b, _ in shapes)
+    assert c["delta_slots"] == sum(b * e for b, e in shapes)
+    line = err.rstrip().splitlines()[-1]
+    threads: dict[str, set] = {}
+    for s in job.spans:
+        threads.setdefault(s.name, set()).add(s.thread)
+    assert len(threads["stream_read"]) == 1
+    assert job.root.thread not in threads["stream_read"]
+    if case == "store":
+        assert packed == [] and "delta_encode" not in threads
+        assert "encode_workers" not in c and "stream_bytes" not in c
+    else:
+        assert packed and calls["n"] == 8
+        assert c["encode_workers"] == 2
+        assert c["stream_bytes"] == (c["rows_read"] - c["rows_invalid"]) \
+            * 400
+        assert 1 <= len(threads["delta_encode"]) <= 2
+        assert not threads["delta_encode"] & (threads["stream_read"]
+                                              | {job.root.thread})
+        assert sum(s.name == "delta_encode" for s in job.spans) == 8
+        assert "delta_encode=" in line and "encode_workers=2" in line
+    for name in UPLOAD_COUNTS:
+        if name in c:
+            assert f"{name}={c[name]}" in line
 
 
 def _align_files(escalate: bool):

@@ -121,6 +121,20 @@ class NearestResult:
         observe.count("csv_bytes", os.path.getsize(path))
 
 
+def count_upload(payload) -> None:
+    """The job's counters of one batch's upload: the batch, and a sparse
+    delta's batch with its B rows and B x E slots, or one 4-bit packed
+    batch."""
+    observe.count("batches", 1)
+    if payload[0] == "delta":
+        B, E = payload[1].shape
+        observe.count("delta_batches", 1)
+        observe.count("delta_rows", B)
+        observe.count("delta_slots", B * E)
+    else:
+        observe.count("packed_batches", 1)
+
+
 def resolve_device(name: str) -> torch.device:
     """The run's device; a CUDA request without a usable GPU exits."""
     dev = torch.device(name)
@@ -399,7 +413,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 else:
                     survive, bufs = prune_acc(state, bufs, up(payload[1]),
                                               ok, ridx)
-            observe.count("batches", 1)
+            count_upload(payload)
             sv = np.nonzero(fetch(survive)[: batch.n])[0]
             with observe.span("retain"):
                 for i in sv:
@@ -478,7 +492,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                         qd, state, up(payload[1]), ok)
                 scan.accumulate_survivors(buf, buf_idx, buf_n, codes_d,
                                           survive, batch.base_idx)
-            observe.count("batches", 1)
+            count_upload(payload)
             drain_pending()               # sync batch i-1, not i
             pending = (survive, batch)
             # after the drain n_buf_host covers through batch i-1 and the
@@ -509,7 +523,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 state_host = host_state(state)
             with observe.span("upload_prune"):
                 state, flags_d = step_fn(state, batch, payload)
-            observe.count("batches", 1)
+            count_upload(payload)
             if pending is not None:
                 prev = pending[1]
                 _drain(pending)

@@ -91,7 +91,9 @@ class RefStreamer:
 
     QC mirrors nearest.c:250-286: skip same-name refs (--exclude_self),
     skip refs with fewer than (1-ref_ambiguity)*L valid sites, error on
-    length mismatch.
+    length mismatch.  Each batch is a ``stream_read`` span on the
+    reader thread and adds the raw bytes of the rows it hands on
+    (n x L) to the job's ``stream_bytes``.
     """
 
     def __init__(self, paths: list[str], n_sites: int, batch: int,
@@ -208,6 +210,7 @@ class RefStreamer:
                          n_invalid=self.stats.n_invalid,
                          same_name=self.stats.same_name)
             base += count
+            observe.count("stream_bytes", count * self.n_sites)
             return b
 
         for names, raw, codes, valid in self._records():
@@ -276,7 +279,9 @@ class EncodedStream:
     buckets, else ("packed", packed).  Batches i+1..i+workers encode
     while batch i's upload and device step run.  ``workers``
     (UVAIA_TPU_ENCODE_THREADS) defaults to min(2, cpu_count - 1),
-    floor 1, as in the JAX package."""
+    floor 1, as in the JAX package; the job counts it as
+    ``encode_workers``, and each batch's encode is a ``delta_encode``
+    span on the worker that ran it."""
 
     def __init__(self, streamer: RefStreamer, delta_base: np.ndarray,
                  prefetch: int = 2, workers: int | None = None):
@@ -287,10 +292,11 @@ class EncodedStream:
                 "UVAIA_TPU_ENCODE_THREADS",
                 max(1, min(2, (os.cpu_count() or 1) - 1))))
         self._workers = max(1, workers)
+        observe.count("encode_workers", self._workers)
         self._pf = Prefetcher(self._batches,
                               maxsize=max(prefetch, self._workers))
 
-    @observe.span("stream_read")
+    @observe.span("delta_encode")
     def _encode(self, batch):
         enc = host.delta_encode(batch.codes, batch.ok, self.delta_base)
         if enc is not None:
