@@ -216,6 +216,26 @@ def test_nearest_job_counts_agree_with_its_outputs(tmp_path, monkeypatch,
     assert _children_cover(job) >= 0.95
 
 
+@pytest.mark.parametrize("case", ["fasta", "store", "store_no_native"])
+def test_nearest_bulk_decode_counts_the_retained_store_rows(
+        tmp_path, monkeypatch, case):
+    """A prune job on a store decodes every row it retains in the native
+    bulk call (`bulk_decode_rows` = `rows_scored`); on FASTA, and on a
+    store without the native library, it decodes none there."""
+    from uvaia_tpu_torch.io import native
+    monkeypatch.chdir(tmp_path)
+    if case.endswith("no_native"):
+        monkeypatch.setenv("UVAIA_TPU_NO_NATIVE", "1")
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_failed", False)
+    db = _nearest_files(case != "fasta")
+    assert _nearest(db, True) == 0
+    c = observe.jobs()[-1].counts
+    assert c["rows_scored"] > 0
+    assert c.get("bulk_decode_rows", 0) == (
+        c["rows_scored"] if case == "store" else 0)
+
+
 UPLOAD_COUNTS = ("delta_batches", "packed_batches", "delta_rows",
                  "delta_slots")
 

@@ -23,8 +23,11 @@ from uvaia_tpu.engine import nearest as jnearest
 from uvaia_tpu_torch.cli import main as port_main
 from uvaia_tpu_torch.core.encoding import ENCODE_LUT
 from uvaia_tpu_torch.engine import nearest as pnearest
+from uvaia_tpu_torch.engine.stream import (RefStreamer, dump_entries,
+                                           dump_entry)
 from uvaia_tpu_torch.io import native as pnative
 from uvaia_tpu_torch.io import store as pstore
+from uvaia_tpu_torch.utils import observe
 
 from test_store import _mk_genomes, _write_fasta
 
@@ -129,6 +132,76 @@ def test_ingest_matches_jax(tmp_path, digest, scenario):
         assert st.frame_row(r) == sj.frame_row(r)
     assert pstore.verify(p) == jstore.verify(j)
     assert pstore.verify(p)["ok"]
+
+
+@pytest.mark.parametrize("scenario", ["roundtrip", "no_frames",
+                                      "packed_only", "arbitrary_bytes"])
+def test_seq_rows_match_seq_row(tmp_path, digest, scenario):
+    """`Store.seq_rows` (one native call, or `seq_row` row by row
+    without the library) decodes all rows, an unsorted subset with
+    repeats and no rows as `seq_row` does, gap runs, exceptions and odd
+    lengths included; `bulk_decode_rows` counts the native rows."""
+    fa, _, seqs, kw = _genomes(tmp_path, scenario)
+    p = str(tmp_path / "port.uvst")
+    pstore.ingest([str(fa)], p, **kw)
+    st = pstore.Store(p)
+    st._lazy_decode_meta()
+    if scenario != "packed_only":
+        assert (np.diff(st._run_off) > 0).any()
+        assert (np.diff(st._exc_off) > 0).any()
+    if scenario == "arbitrary_bytes":
+        assert st.n_sites % 2 == 1
+    picks = np.random.default_rng(5).integers(0, st.n_rows, 3 * st.n_rows)
+    assert (np.diff(picks) < 0).any() and len(set(picks)) < len(picks)
+    with observe.job("decode") as job:
+        for rows in (range(st.n_rows), picks, [], picks[::-2]):
+            want = [st.seq_row(int(r)) for r in rows]
+            assert st.seq_rows(rows) == want
+            assert want == [seqs[r].upper() for r in rows]
+        with pytest.raises(IndexError):
+            st.seq_rows([0, st.n_rows])
+    native_rows = st.n_rows + len(picks) + len(picks[::-2])
+    assert job.counts.get("bulk_decode_rows", 0) == (
+        native_rows if digest == "native" else 0)
+    if digest == "native":
+        # offsets past their section never reach the library
+        bad = pstore.Store(p)
+        bad._lazy_decode_meta()
+        bad._exc_off = bad._exc_off + len(bad._exc_pos) + 1
+        with pytest.raises(ValueError, match="damaged row offsets"):
+            bad.seq_rows([0])
+
+
+@pytest.mark.parametrize("kind", ["store", "frames", "fasta"])
+def test_dump_entries_equal_dump_entry(tmp_path, digest, kind):
+    """`dump_entries(batch, idx)` is the per-row `dump_entry` list on a
+    store batch, a store batch with dump frames and a FASTA batch (raw
+    rows with the library, sequences without)."""
+    fa, names, _, kw = _genomes(
+        tmp_path, "roundtrip" if kind == "frames" else "no_frames")
+    n_sites = 600
+    if kind == "fasta":
+        streamer = RefStreamer([str(fa)], n_sites, 16)
+    else:
+        p = str(tmp_path / "port.uvst")
+        pstore.ingest([str(fa)], p, **kw)
+        streamer = pstore.StoreStreamer([p], n_sites, 16)
+    rng = np.random.default_rng(9)
+    seen = 0
+    for batch in streamer:
+        batch = batch[0] if isinstance(batch, tuple) else batch
+        if kind != "fasta":
+            # pieces of two store blocks (block=8) in a batch of 16
+            assert len(batch.pieces) >= 2 or batch.n <= 8
+        idx = rng.permutation(batch.n)[: batch.n - 1]
+        idx = np.concatenate([idx, idx[:3]])
+        got = dump_entries(batch, idx)
+        assert got == [dump_entry(batch, int(i)) for i in idx]
+        assert dump_entries(batch, []) == []
+        frames = [f is not None for _, _, f in got]
+        assert all(frames) if kind == "frames" else not any(frames)
+        seen += batch.n
+    assert seen == len(names) > 16
 
 
 def test_append_equals_jax_append(tmp_path, digest):

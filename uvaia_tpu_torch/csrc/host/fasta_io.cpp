@@ -807,4 +807,55 @@ long ufa_store_block(const uint8_t* raw, const uint8_t* codes,
   return 0;
 }
 
+// Exact decode of store rows (io/store.py Store.seq_rows), the inverse of
+// ufa_store_block and the native twin of Store.seq_row: per row, the
+// packed codes through a two-character table, then the '-' runs (cut at
+// n_sites, as a numpy slice is), then the residual exceptions.
+//   packed    — (n_rows, w2) packed codes, high nibble first
+//   rows      — n store row indices, any order, repeats allowed
+//   pair_lut  — 256 x 2 chars: decode_lut[b >> 4], decode_lut[b & 15]
+//   runs      — (start, len) uint32 pairs; run_off (n_rows + 1) ends
+//   exc_*     — exception positions and chars; exc_off (n_rows + 1) ends
+//   out       — n * n_sites bytes
+// Returns 0, or -1 when a row or an exception position is out of range
+// (out is then partly written).
+long ufa_store_decode(const uint8_t* packed, long w2, long n_rows,
+                      const int64_t* rows, long n, long n_sites,
+                      const uint8_t* pair_lut,
+                      const uint32_t* runs, const int64_t* run_off,
+                      const uint32_t* exc_pos, const uint8_t* exc_chr,
+                      const int64_t* exc_off, uint8_t* out) {
+  static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+                "four table entries are stored as one 64-bit word");
+  uint16_t pair[256];
+  memcpy(pair, pair_lut, sizeof pair);
+  const long half = n_sites / 2;
+  for (long k = 0; k < n; k++) {
+    const int64_t r = rows[k];
+    if (r < 0 || r >= n_rows) return -1;
+    const uint8_t* pk = packed + r * w2;
+    uint8_t* o = out + k * n_sites;
+    long j = 0;
+    for (; j + 4 <= half; j += 4) {
+      const uint64_t v = uint64_t(pair[pk[j]]) |
+                         uint64_t(pair[pk[j + 1]]) << 16 |
+                         uint64_t(pair[pk[j + 2]]) << 32 |
+                         uint64_t(pair[pk[j + 3]]) << 48;
+      memcpy(o + 2 * j, &v, 8);
+    }
+    for (; j < half; j++) memcpy(o + 2 * j, &pair[pk[j]], 2);
+    if (n_sites & 1) o[n_sites - 1] = pair_lut[2 * pk[half]];
+    for (int64_t g = run_off[r]; g < run_off[r + 1]; g++) {
+      const int64_t s = runs[2 * g];
+      const int64_t e = std::min<int64_t>(s + runs[2 * g + 1], n_sites);
+      if (s < e) memset(o + s, '-', static_cast<size_t>(e - s));
+    }
+    for (int64_t x = exc_off[r]; x < exc_off[r + 1]; x++) {
+      if (exc_pos[x] >= static_cast<uint64_t>(n_sites)) return -1;
+      o[exc_pos[x]] = exc_chr[x];
+    }
+  }
+  return 0;
+}
+
 }  // extern "C"

@@ -39,7 +39,8 @@ from ..utils import checkpoint as ckpt_mod
 from ..utils import observe
 from ..utils.observe import maybe_profile
 from .query import QueryPack, build_query_pack, log
-from .stream import EncodedStream, RefStreamer, dump_entry, write_dump
+from .stream import (EncodedStream, RefStreamer, dump_entries, dump_entry,
+                     write_dump)
 
 CSV_HEADER_FULL = ("query,reference,rank,ACGT_matches,text_matches,"
                    "partial_matches,valid_pair_comparisons,"
@@ -416,9 +417,8 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             count_upload(payload)
             sv = np.nonzero(fetch(survive)[: batch.n])[0]
             with observe.span("retain"):
-                for i in sv:
-                    retained[batch.base_idx + int(i)] = \
-                        dump_entry(batch, int(i))
+                retained.update(zip((batch.base_idx + sv).tolist(),
+                                    dump_entries(batch, sv)))
             observe.count("rows_scored", len(sv))
             # rows past a shard's buffer end would be lost: flush
             # whenever the fullest shard could overflow on the next batch
@@ -459,9 +459,8 @@ def _run_nearest(ref_paths: list[str], query_path: str,
             pending = None
             sv = np.nonzero(fetch(survive_d)[: pbatch.n])[0]
             with observe.span("retain"):
-                for i in sv:
-                    retained[pbatch.base_idx + int(i)] = \
-                        dump_entry(pbatch, int(i))
+                retained.update(zip((pbatch.base_idx + sv).tolist(),
+                                    dump_entries(pbatch, sv)))
             observe.count("rows_scored", len(sv))
             n_buf_host += len(sv)
 

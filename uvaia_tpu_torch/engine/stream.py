@@ -28,7 +28,7 @@ from ..utils import observe
 from ..utils.prefetch import Prefetcher, ordered_pool_map
 
 __all__ = ["EncodedStream", "RefBatch", "RefStreamer", "StreamStats",
-           "dump_entry", "write_dump"]
+           "dump_entries", "dump_entry", "write_dump"]
 
 
 @dataclass
@@ -51,6 +51,9 @@ class RefBatch:
             return self.seqs[i]
         return self.raw[i].tobytes()
 
+    def seq_many(self, idx) -> list[bytes]:
+        return [self.seq(int(i)) for i in idx]
+
     def frame(self, i: int):
         """No pre-compressed dump frame on the FASTA path (store
         batches override this — see io/store.StoreBatch.frame)."""
@@ -65,6 +68,19 @@ def dump_entry(batch, i: int):
     if frame is not None:
         return (batch.names[i], None, frame)
     return (batch.names[i], batch.seq(i), None)
+
+
+def dump_entries(batch, idx) -> list[tuple]:
+    """``[dump_entry(batch, i) for i in idx]``, with the rows that carry
+    no dump frame decoded in one ``batch.seq_many`` call (a store batch
+    decodes them natively in bulk, a FASTA batch slices its rows)."""
+    idx = [int(i) for i in idx]
+    frames = [batch.frame(i) for i in idx]
+    seqs = iter(batch.seq_many([i for i, f in zip(idx, frames)
+                                if f is None]))
+    return [(batch.names[i], None, f) if f is not None
+            else (batch.names[i], next(seqs), None)
+            for i, f in zip(idx, frames)]
 
 
 def write_dump(writer, entry) -> None:

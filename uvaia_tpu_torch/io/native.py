@@ -1,7 +1,9 @@
 """ctypes bridge to the port's native host library (csrc/host/fasta_io.cpp):
 the FASTA reader over raw / gzip / xz files, the sparse-delta encoder
-(``ufa_delta_extract`` / ``ufa_delta_repack``, used by ops/host.py) and
-the store-block digest of ``ingest`` (``ufa_store_block``, io/store.py).
+(``ufa_delta_extract`` / ``ufa_delta_repack``, used by ops/host.py), and
+the store-block digest of ``ingest`` and its inverse, the bulk row decode
+of a scan's survivors (``ufa_store_block``, ``ufa_store_decode``,
+io/store.py).
 
 The counterpart of ``uvaia_tpu/io/native.py``, with its own copy of the
 source and its own build.  The library is compiled with ``g++`` at first
@@ -124,6 +126,14 @@ def load(path: Path):
         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
         ctypes.c_void_p]
+    lib.ufa_store_decode.restype = ctypes.c_long
+    lib.ufa_store_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 

@@ -67,6 +67,7 @@ simply override the query-majority delta base with the store base.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import time
@@ -87,6 +88,12 @@ VERSION = 1
 #: changes; verify() treats any other scheme's entries as unknown.
 CRC_SCHEME = 2
 DEFAULT_BLOCK = 4096
+
+
+#: the two characters of each packed byte (high nibble first), the
+#: table of the native row decode (``Store.seq_rows``)
+_DECODE_PAIRS = np.stack([DECODE_LUT[np.arange(256) >> 4],
+                          DECODE_LUT[np.arange(256) & 15]], axis=1)
 
 
 def _unpack_nibbles(pk: np.ndarray, n_sites: int) -> np.ndarray:
@@ -362,7 +369,6 @@ def _digest_block_native(lib, raw, codes):
     """(packed, valid, runs, run_counts, exc_pos, exc_chr, exc_counts)
     in ONE native pass (the numpy pipeline in ingest makes ~8 passes
     over the block)."""
-    import ctypes
     n, L = codes.shape
     w2 = (L + 1) // 2
     raw = np.ascontiguousarray(raw)
@@ -772,6 +778,7 @@ class Store:
         else:
             self.base = None
         self._runs = None
+        self._decode_checked = False
         if self.meta.get("has_rowxz"):
             self._rowxz = np.memmap(self.path / "rowxz.bin",
                                     dtype=np.uint8, mode="r")
@@ -842,6 +849,46 @@ class Store:
             chars[self._exc_pos[e0:e1]] = self._exc_chr[e0:e1]
         return chars.tobytes()
 
+    def seq_rows(self, rows) -> list[bytes]:
+        """``seq_row`` of each of ``rows`` (any order, repeats allowed),
+        decoded in one call of the native library (csrc/host/fasta_io.cpp
+        ``ufa_store_decode``), which holds no GIL; without the library,
+        row by row through ``seq_row``.  Counts the rows the library
+        decoded as ``bulk_decode_rows``."""
+        from . import native
+        rows = np.ascontiguousarray(rows, dtype=np.int64).reshape(-1)
+        lib = native.get_lib()
+        if lib is None or rows.size == 0:
+            return [self.seq_row(int(r)) for r in rows]
+        self._lazy_decode_meta()
+        if not self._decode_checked:
+            # the library trusts these bounds: check them once a store
+            self._run_off = np.ascontiguousarray(self._run_off, np.int64)
+            self._exc_off = np.ascontiguousarray(self._exc_off, np.int64)
+            for off, n in ((self._run_off, len(self._runs)),
+                           (self._exc_off, len(self._exc_pos))):
+                if (len(off) != self.n_rows + 1 or off[0] < 0
+                        or off[-1] > n or (np.diff(off) < 0).any()):
+                    raise ValueError(f"{self.path}: damaged row offsets "
+                                     f"(check the store: info --verify)")
+            if len(self._exc_chr) != len(self._exc_pos) or \
+                    2 * self.w2 < self.n_sites:
+                raise ValueError(f"{self.path}: damaged store sections")
+            self._decode_checked = True
+        out = np.empty((rows.size, self.n_sites), dtype=np.uint8)
+
+        def ptr(a):
+            return a.ctypes.data_as(ctypes.c_void_p)
+        if lib.ufa_store_decode(
+                ptr(self.packed), self.w2, self.n_rows, ptr(rows),
+                rows.size, self.n_sites, ptr(_DECODE_PAIRS),
+                ptr(self._runs), ptr(self._run_off), ptr(self._exc_pos),
+                ptr(self._exc_chr), ptr(self._exc_off), ptr(out)) != 0:
+            raise IndexError(f"{self.path}: a row or an exception "
+                             f"position lies outside the store")
+        observe.count("bulk_decode_rows", rows.size)
+        return [row.tobytes() for row in out]
+
     def frame_row(self, r: int) -> bytes | None:
         """Pre-compressed xz dump frame of row r (">name\\nseq\\n" as a
         complete xz stream), or None for a store without frames."""
@@ -877,6 +924,24 @@ class StoreBatch:
                 return store.seq_row(int(rows[i]))
             i -= len(rows)
         raise IndexError(i)
+
+    def seq_many(self, idx) -> list[bytes]:
+        """``seq(i)`` of each i of ``idx``, one ``Store.seq_rows`` call
+        a piece."""
+        idx = np.asarray(idx, dtype=np.int64).reshape(-1)
+        out: list = [None] * idx.size
+        lo = found = 0
+        for store, rows in self.pieces:
+            at = np.nonzero((idx >= lo) & (idx < lo + len(rows)))[0]
+            if at.size:
+                seqs = store.seq_rows(np.asarray(rows)[idx[at] - lo])
+                for k, sq in zip(at.tolist(), seqs):
+                    out[k] = sq
+                found += at.size
+            lo += len(rows)
+        if found != idx.size:
+            raise IndexError(idx[(idx < 0) | (idx >= lo)][0])
+        return out
 
     def frame(self, i: int) -> bytes | None:
         """Pre-compressed dump frame for row i (engines write it via
