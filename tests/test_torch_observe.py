@@ -179,20 +179,27 @@ NEAREST_SPANS = {"query_pack", "device_data", "stream_wait", "stream_read",
                  "csv"}
 
 
+@pytest.mark.parametrize("layout", [(), ("--devices", "2")],
+                         ids=["single", "sharded"])
 @pytest.mark.parametrize("store", [False, True], ids=["fasta", "store"])
 @pytest.mark.parametrize("prune", [True, False], ids=["prune", "no_prune"])
 def test_nearest_job_counts_agree_with_its_outputs(tmp_path, monkeypatch,
-                                                   capsys, store, prune):
+                                                   capsys, store, prune,
+                                                   layout):
+    """Every mode of the scan (prune or dense, on one device or sharded
+    over two) records the same spans and counters, and they agree with
+    its outputs."""
     monkeypatch.chdir(tmp_path)
     db = _nearest_files(store)
     capsys.readouterr()
-    assert _nearest(db, prune) == 0
+    assert _nearest(db, prune, *layout) == 0
     err = capsys.readouterr().err
     job = observe.jobs()[-1]
     c = job.counts
     assert job.tool == "nearest"
     assert re.search(r"^Trace: nearest ", err, re.M)
     assert err.rstrip().splitlines()[-1] == job.line()
+    assert ("Sharded scan over mesh (db=2" in err) == bool(layout)
     read, saved = map(int, re.search(
         r"Total of (\d+) sequences read; (\d+) saved", err).groups())
     assert c["rows_read"] == read == 120 and c["rows_invalid"] == 1

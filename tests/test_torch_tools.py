@@ -20,6 +20,7 @@ from uvaia_tpu.io.store import ingest
 from uvaia_tpu_torch.cli import main as port_main
 from uvaia_tpu_torch.engine import ball as pball
 from uvaia_tpu_torch.engine import legacy as plegacy
+from uvaia_tpu_torch.engine import nearest as pnearest
 from uvaia_tpu_torch.engine.query import build_query_pack
 from uvaia_tpu_torch.ops import recon
 
@@ -174,14 +175,21 @@ def test_ball_packed_and_delta_steps(tmp_path, monkeypatch):
     assert "r10" not in {r.name for r in read_fasta_all("port.aln.xz")}
 
 
+@pytest.mark.parametrize("tool", ["ball", "nearest"])
 def test_ball_refuses_mixed_inputs_and_closes_the_writer(tmp_path,
-                                                         monkeypatch):
+                                                         monkeypatch, tool):
+    """Both tools that open the reference stream refuse a mix of stores
+    and FASTA files; ball flushes what it kept when a row stops it."""
     monkeypatch.chdir(tmp_path)
     _ball_files(nr=20)
     ingest(["db.fa"], "db.uvst")
     with pytest.raises(SystemExit, match="mix ingested stores"):
-        pball.run_ball(["db.uvst", "db.fa"], "q.fa",
-                       pball.BallConfig(device="cpu"))
+        if tool == "ball":
+            pball.run_ball(["db.uvst", "db.fa"], "q.fa",
+                           pball.BallConfig(device="cpu"))
+        else:
+            pnearest.run_nearest(["db.uvst", "db.fa"], "q.fa",
+                                 pnearest.NearestConfig(device="cpu"))
     # a database row of another length stops the run; what was kept so
     # far is flushed all the same
     with open("db.fa", "a") as f:

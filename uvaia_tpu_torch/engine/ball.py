@@ -35,11 +35,10 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
-import torch
 
-from ..io import store as store_mod
 from ..io.fasta import make_fasta_writer
 from ..ops import distance as dist_ops
 from ..ops.host import majority_code
@@ -47,7 +46,7 @@ from ..ops.scan import reconstruct_delta, unpack_codes, upload
 from ..ops.score_kernels import full_float32_matmuls
 from .nearest import resolve_device
 from .query import build_query_pack, log
-from .stream import EncodedStream, RefStreamer, dump_entry, write_dump
+from .stream import dump_entry, open_reference_stream, write_dump
 
 
 @dataclass
@@ -86,9 +85,7 @@ def run_ball(ref_paths: list[str], query_path: str, cfg: BallConfig):
     dist = max(0, min(cfg.distance, (L - 2 * pack.trim) // 10))
     log(f"Radius search: {pack.n_query} queries, radius {dist}")
 
-    def up(x: np.ndarray) -> torch.Tensor:
-        return upload(x, dev)
-
+    up = partial(upload, device=dev)
     cons_sites = np.concatenate([pack.idx_c, pack.idx_m]).astype(np.int32)
     cons_sites_d = up(cons_sites)
     cons_codes_d = up(pack.consensus[cons_sites])
@@ -96,18 +93,9 @@ def run_ball(ref_paths: list[str], query_path: str, cfg: BallConfig):
     idx_d = up(idx)
     weights = up(dist_ops.mismatch_weights(pack.codes[:, idx], cfg.acgt))
 
-    n_store = sum(store_mod.is_store(p) for p in ref_paths)
-    if n_store and n_store != len(ref_paths):
-        raise SystemExit(
-            "reference inputs mix ingested stores and FASTA files; "
-            "scan them in separate runs (or ingest the FASTA too)")
-    store_mode = n_store > 0
-    delta_base = majority_code(pack.codes)
-    if store_mode:
-        # stored diff lists are against the store's own base
-        sb = store_mod.peek_store_base(ref_paths[0])
-        if sb is not None:
-            delta_base = sb
+    streamer, pairs, delta_base = open_reference_stream(
+        ref_paths, L, cfg.pool, majority_code(pack.codes),
+        ref_ambiguity=cfg.ref_ambiguity)
     delta_base_d = up(delta_base)
 
     def keep_rule(ref_codes, ok):
@@ -120,9 +108,6 @@ def run_ball(ref_paths: list[str], query_path: str, cfg: BallConfig):
         keep = (2 * d_cons <= dist) | (mindist <= dist)
         return ok & keep, mindist
 
-    streamer_cls = store_mod.StoreStreamer if store_mode else RefStreamer
-    streamer = streamer_cls(ref_paths, L, cfg.pool,
-                            ref_ambiguity=cfg.ref_ambiguity)
     # the kept set can be a large DB fraction (radius searches on
     # surveillance data keep whole lineages); multi-stream xz on a
     # thread pool keeps the writer off the streaming critical path
@@ -138,7 +123,6 @@ def run_ball(ref_paths: list[str], query_path: str, cfg: BallConfig):
         for i in np.nonzero(keep)[0]:
             write_dump(writer, dump_entry(batch, int(i)))
 
-    pairs = streamer if store_mode else EncodedStream(streamer, delta_base)
     try:
         for batch, payload in pairs:
             if payload[0] == "delta":  # sparse-delta upload (see ops/host)

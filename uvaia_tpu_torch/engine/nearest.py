@@ -24,22 +24,22 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
-from ..io import store as store_mod
 from ..io.compress import open_write
 from ..io.fasta import WRITE_CODEC_SUFFIX, make_fasta_writer
 from ..ops import scan
-from ..ops.host import IDX_SENTINEL
+from ..ops.host import IDX_SENTINEL, majority_code
 from ..ops.score_kernels import full_float32_matmuls
 from ..parallel import mesh as pmesh
 from ..utils import checkpoint as ckpt_mod
 from ..utils import observe
 from ..utils.observe import maybe_profile
 from .query import QueryPack, build_query_pack, log
-from .stream import (EncodedStream, RefStreamer, dump_entries, dump_entry,
+from .stream import (dump_entries, dump_entry, open_reference_stream,
                      write_dump)
 
 CSV_HEADER_FULL = ("query,reference,rank,ACGT_matches,text_matches,"
@@ -123,9 +123,8 @@ class NearestResult:
 
 
 def count_upload(payload) -> None:
-    """The job's counters of one batch's upload: the batch, and a sparse
-    delta's batch with its B rows and B x E slots, or one 4-bit packed
-    batch."""
+    """The job's counters of a batch's upload: the batch, and a sparse
+    delta's batch, B rows and B x E slots, or a 4-bit packed batch."""
     observe.count("batches", 1)
     if payload[0] == "delta":
         B, E = payload[1].shape
@@ -167,15 +166,212 @@ def make_run_mesh(cfg: NearestConfig, dev: torch.device):
         raise SystemExit(f"--devices {cfg.n_devices}: {e}")
 
 
+def _up(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    observe.count("h2d_bytes", x.nbytes)
+    return scan.upload(x, dev)
+
+
+def _fetch(t: torch.Tensor) -> np.ndarray:
+    """A device result on the host (blocks until it is ready)."""
+    with observe.span("device_wait"):
+        return t.cpu().numpy()
+
+
+class _Mode:
+    """A way to scan, for _run_nearest's loop: ``step`` queues a batch's
+    device work (its flags are read later), ``settle`` is the host work
+    due after it, ``snapshot`` brings dump and state to one batch (before
+    the step if ``snapshot_first``), ``finish`` drains what is left."""
+
+    snapshot_first = False
+
+    def __init__(self, qd, state, dump, dev: torch.device):
+        self.qd, self.state, self.dump, self.dev = qd, state, dump, dev
+        self.pending = None     # (device flags, batch) drained one behind
+
+    def up(self, x: np.ndarray) -> torch.Tensor:
+        return _up(x, self.dev)
+
+    def ref_idx(self, batch, payload) -> torch.Tensor:
+        return self.up(batch.base_idx + np.arange(payload[1].shape[0],
+                                                  dtype=np.int32))
+
+    def host_state(self):
+        return _fetch(self.state[0]), _fetch(self.state[1])
+
+    def snapshot(self, batch):
+        self.finish()
+        return batch, self.host_state()
+
+
+class _Dense(_Mode):
+    """--no-prune: every batch scored whole (on a mesh, sharded).  Flags
+    drain one batch behind; a snapshot holds the state from before step
+    i with the drain of batch i-1."""
+
+    snapshot_first = True
+
+    def __init__(self, qd, state, dump, dev, mesh):
+        super().__init__(qd, state, dump, dev)
+        self.sharded = None if mesh is None else (
+            pmesh.make_sharded_scan_step(qd, mesh),
+            pmesh.make_sharded_scan_step(qd, mesh, delta=True))
+
+    def step(self, batch, payload):
+        ok, delta = self.up(batch.ok), payload[0] == "delta"
+        if self.sharded is None:    # rows: the batch's first global index
+            fn = scan.scan_step_delta if delta else scan.scan_step_packed
+            fn, rows = partial(fn, self.qd), batch.base_idx
+        else:                       # rows: every row's global index
+            fn, rows = self.sharded[delta], self.ref_idx(batch, payload)
+        self.state, flags = fn(self.state, *map(self.up, payload[1:]), ok,
+                               rows)
+        return flags
+
+    def settle(self, batch, flags):
+        self.finish()
+        self.pending = (flags, batch)
+
+    def snapshot(self, batch):
+        if self.pending is not None:
+            return self.pending[1], self.host_state()
+
+    def finish(self):
+        if self.pending is not None:
+            (flags, batch), self.pending = self.pending, None
+            hit = np.nonzero(_fetch(flags)[: batch.n])[0]
+            self.dump((batch.base_idx + int(i), dump_entry(batch, int(i)))
+                      for i in hit)
+
+
+class _Survivors(_Mode):
+    """Two-phase: the device prunes batches into survivor buffers, a
+    flush scores them; the host dumps the survivors a flush flags."""
+
+    def __init__(self, qd, state, dump, dev, pack):
+        super().__init__(qd, state, dump, dev)
+        scan.build_prune_data(qd, pack)
+        self.retained: dict[int, tuple] = {}
+
+    def retain(self, batch, survive) -> int:
+        sv = np.nonzero(_fetch(survive)[: batch.n])[0]
+        with observe.span("retain"):
+            self.retained.update(zip((batch.base_idx + sv).tolist(),
+                                     dump_entries(batch, sv)))
+        observe.count("rows_scored", len(sv))
+        return len(sv)
+
+    def dump_flagged(self, idx) -> None:
+        self.dump((int(g), self.retained[int(g)]) for g in idx)
+        self.retained = {}
+
+
+class _Prune(_Survivors):
+    """On one device, survivors drained one batch behind.  The buffer
+    (~1 GB, at least two batches) is flushed when it could overflow, and
+    on the first batch: thresholds tighten only at flushes."""
+
+    def __init__(self, qd, state, dump, dev, pack, pool: int):
+        super().__init__(qd, state, dump, dev, pack)
+        self.pool, W = pool, qd.width
+        self.cap = max(2 * pool, min(8 * pool, (1 << 30) // max(W, 1)))
+        self.buf, self.buf_idx, self.buf_n = scan.new_survivor_buffer(
+            self.cap, W, dev)
+        self.warmed_up = False
+        self.n_buf_host = 0      # lagged host mirror of buf_n (see settle)
+
+    def step(self, batch, payload):
+        ok = self.up(batch.ok)
+        fn = (scan.prune_and_hold_delta if payload[0] == "delta"
+              else scan.prune_and_hold)
+        survive, codes_d = fn(self.qd, self.state,
+                              *map(self.up, payload[1:]), ok)
+        scan.accumulate_survivors(self.buf, self.buf_idx, self.buf_n,
+                                  codes_d, survive, batch.base_idx)
+        return survive
+
+    def drain(self):
+        if self.pending is not None:
+            (survive, batch), self.pending = self.pending, None
+            self.n_buf_host += self.retain(batch, survive)
+
+    def settle(self, batch, survive):
+        self.drain()                  # sync batch i-1, not i
+        self.pending = (survive, batch)
+        # after the drain n_buf_host covers through batch i-1 and the
+        # buffer through batch i: if n_buf_host + 2*pool <= cap, a fully
+        # surviving batch i plus the NEXT batch still fit
+        if not self.warmed_up or self.n_buf_host + 2 * self.pool > self.cap:
+            self.flush()
+            self.warmed_up = True
+
+    def flush(self):
+        self.drain()
+        if self.n_buf_host == 0:
+            self.retained = {}
+            return
+        with observe.span("flush"):
+            self.state, flags = scan.flush_survivors(
+                self.qd, self.state, self.buf, self.buf_idx, self.buf_n)
+        observe.count("flushes", 1)
+        flags = _fetch(flags)
+        self.dump_flagged(_fetch(self.buf_idx)[np.nonzero(flags)[0]])
+        self.buf_n.zero_()
+        self.n_buf_host = 0
+
+    finish = flush
+
+
+class _ShardedPrune(_Survivors):
+    """On a (db, site) mesh, a buffer a db shard; survivors read at once,
+    and a flush whenever the fullest buffer could overflow on the next
+    batch (rows past a shard's buffer end would be lost)."""
+
+    def __init__(self, qd, state, dump, dev, pack, mesh, pool: int):
+        super().__init__(qd, state, dump, dev, pack)
+        self.B_loc = pool // mesh.shape["db"]
+        self.cap_loc = 2 * self.B_loc
+        init, self.prune_acc, self.prune_acc_delta, self.sv_flush = \
+            pmesh.make_sharded_survivor_ops(qd, mesh, self.cap_loc)
+        self.bufs = init()
+
+    def step(self, batch, payload):
+        ok, ridx = self.up(batch.ok), self.ref_idx(batch, payload)
+        fn = (self.prune_acc_delta if payload[0] == "delta"
+              else self.prune_acc)
+        survive, self.bufs = fn(self.state, self.bufs,
+                                *map(self.up, payload[1:]), ok, ridx)
+        return survive
+
+    def settle(self, batch, survive):
+        self.retain(batch, survive)
+        with observe.span("device_wait"):
+            fullest = int(self.bufs.fill().max())
+        if fullest + self.B_loc > self.cap_loc:
+            self.flush()
+
+    def flush(self):
+        if not self.retained:
+            return
+        with observe.span("device_wait"):
+            idxs = self.bufs.indices()
+        with observe.span("flush"):
+            self.state, flags, _ = self.sv_flush(self.state, self.bufs)
+        observe.count("flushes", 1)
+        self.dump_flagged(idxs[np.nonzero(_fetch(flags))[0]])
+
+    finish = flush
+
+
 def run_nearest(ref_paths: list[str], query_path: str,
                 cfg: NearestConfig) -> NearestResult:
-    with maybe_profile(), observe.job("nearest", log) as root:
+    # prune_step's site product runs as a float32 matmul, exact only in
+    # full float32 precision (score_kernels.exact_counts)
+    with maybe_profile(), full_float32_matmuls(), \
+            observe.job("nearest", log) as root:
         return _run_nearest(ref_paths, query_path, cfg, root)
 
 
-# prune_step's site product runs as a float32 matmul, exact only in
-# full float32 precision (score_kernels.exact_counts)
-@full_float32_matmuls()
 def _run_nearest(ref_paths: list[str], query_path: str,
                  cfg: NearestConfig, root: observe.Span) -> NearestResult:
     dev = resolve_device(cfg.device)
@@ -199,33 +395,9 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         log("Considering text match and partially ambiguous "
             "(excluding only gaps and Ns).")
 
-    def up(x: np.ndarray) -> torch.Tensor:
-        observe.count("h2d_bytes", x.nbytes)
-        return scan.upload(x, dev)
-
     with observe.span("device_data"):
-        # persistent-store inputs (io/store.py): batches stream
-        # straight from mmap; the store's delta base replaces the query
-        # majority so uploads reuse the stored diff lists
-        n_store = sum(store_mod.is_store(p) for p in ref_paths)
-        if n_store and n_store != len(ref_paths):
-            raise SystemExit(
-                "reference inputs mix ingested stores and FASTA files; "
-                "scan them in separate runs (or ingest the FASTA too)")
-        store_mode = n_store > 0
-        store_base = store_mod.peek_store_base(ref_paths[0]) if store_mode \
-            else None
-
-        qd = scan.build_device_data(
-            pack, k=cfg.nbest, device=dev,
-            site_shards=cfg.site_shards if mesh is not None else 1)
         if mesh is not None:
             log(f"Sharded scan over mesh (db={n_db}, site={cfg.site_shards})")
-        if store_base is not None:
-            qd.delta_base = up(store_base)
-        delta_base = qd.delta_base.cpu().numpy()
-        state = scan.init_state(pack.n_query, cfg.nbest, device=dev)
-
         # ---- checkpoint / resume (same key and file format as uvaia_tpu,
         # so either package resumes the other's snapshot) ------------------
         ckpt_key = ckpt_mod.config_key(
@@ -242,32 +414,31 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         names: dict[int, str] = {}
         skip, base0, resumed_written = cfg.skip_records, 0, 0
         if ckpt is not None:
-            state = (up(ckpt.state_scores), up(ckpt.state_idx))
             names = dict(ckpt.names)
             skip, base0 = ckpt.records_read, ckpt.base_idx
             resumed_written = ckpt.n_written
             observe.count("dump_records", resumed_written)
             log(f"Resuming from checkpoint: {skip} records already scanned, "
                 f"{resumed_written} sequences already dumped")
-
-        exclude = set(pack.names) if cfg.exclude_self else None
-        streamer_cls = store_mod.StoreStreamer if store_mode else RefStreamer
-        extra_kw = {}
-        if cfg.limit_records:
-            if not store_mode:
-                raise SystemExit(
-                    "record-window scanning (limit_records) requires "
-                    "ingested store inputs")
-            extra_kw["limit_records"] = cfg.limit_records
-        streamer = streamer_cls(ref_paths, pack.n_sites, cfg.pool,
-                                ref_ambiguity=cfg.ref_ambiguity,
-                                exclude_names=exclude,
-                                skip_records=skip, initial_base=base0,
-                                **extra_kw)
+        # a store's batches stream straight from mmap, and its delta base
+        # replaces the query majority so uploads reuse the stored diffs
+        streamer, pairs, delta_base = open_reference_stream(
+            ref_paths, pack.n_sites, cfg.pool, majority_code(pack.codes),
+            limit_records=cfg.limit_records,
+            ref_ambiguity=cfg.ref_ambiguity,
+            exclude_names=set(pack.names) if cfg.exclude_self else None,
+            skip_records=skip, initial_base=base0)
         if ckpt is not None:
             streamer.stats.count = ckpt.records_read
             streamer.stats.n_invalid = ckpt.n_invalid
             streamer.stats.same_name = ckpt.same_name
+        qd = scan.build_device_data(
+            pack, k=cfg.nbest, device=dev,
+            site_shards=cfg.site_shards if mesh is not None else 1,
+            delta_base=delta_base)
+        state = scan.init_state(pack.n_query, cfg.nbest, device=dev) \
+            if ckpt is None else (_up(ckpt.state_scores, dev),
+                                  _up(ckpt.state_idx, dev))
 
     with observe.span("dump_write"):
         dump_base = cfg.prefix + ".aln"
@@ -283,24 +454,29 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                     "the dump and checkpoint no longer match")
         writer = make_fasta_writer(dump_base, cfg.codec,
                                    append=ckpt is not None)
+
+    def dump(rows):
+        """Write (global index, dump_entry) rows to the dump."""
+        n = 0
+        with observe.span("dump_write"):
+            for g, entry in rows:
+                names[g] = entry[0]
+                write_dump(writer, entry)
+                n += 1
+            observe.count("dump_records", n)
+
     scan_t0 = root.seconds()
-    last_print = 0
-    last_ckpt = time.time()
-
-    def fetch(t: torch.Tensor) -> np.ndarray:
-        """A device result on the host (blocks until it is ready)."""
-        with observe.span("device_wait"):
-            return t.cpu().numpy()
-
-    def host_state(st):
-        return fetch(st[0]), fetch(st[1])
+    with observe.span("device_data"):
+        mode = (_Dense(qd, state, dump, dev, mesh) if not cfg.prune else
+                _Prune(qd, state, dump, dev, pack, cfg.pool) if mesh is None
+                else _ShardedPrune(qd, state, dump, dev, pack, mesh, cfg.pool))
+    last_print, last_ckpt = 0, time.time()
 
     def _save_ckpt(prev_batch, state_host):
-        """Snapshot through `prev_batch` (drained; state_host is the
-        merged state at exactly that point).  The dump writer is closed
-        first so the file ends on a complete stream whose size the
-        checkpoint records."""
-        nonlocal writer, resumed_written
+        """Snapshot through `prev_batch` (state_host: the state there),
+        the dump closed first to end on a complete stream."""
+        nonlocal writer, resumed_written, last_ckpt
+        last_ckpt = time.time()
         with observe.span("checkpoint"):
             resumed_written += writer.n_written
             writer.close()
@@ -316,58 +492,19 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 dump_bytes=os.path.getsize(dump_path)))
             writer = make_fasta_writer(dump_base, cfg.codec, append=True)
 
-    def _drain(pending):
-        flags, batch = pending
-        hit = np.nonzero(fetch(flags)[: batch.n])[0]
-        with observe.span("dump_write"):
-            for i in hit:
-                names[batch.base_idx + int(i)] = batch.names[i]
-                write_dump(writer, dump_entry(batch, int(i)))
-        observe.count("dump_records", len(hit))
-
-    def write_flushed(retained, hit_indices):
-        """Dump the retained rows a flush flagged, by global index."""
-        with observe.span("dump_write"):
-            for g in hit_indices:
-                entry = retained[int(g)]
-                names[int(g)] = entry[0]
-                write_dump(writer, entry)
-        observe.count("dump_records", len(hit_indices))
-
-    pairs = observe.iter_spans(
-        "stream_wait",
-        streamer if store_mode else EncodedStream(streamer, delta_base))
-
-    def ridx_of(batch, payload) -> torch.Tensor:
-        return up(batch.base_idx + np.arange(payload[1].shape[0],
-                                             dtype=np.int32))
-
-    def make_step_fn():
-        if mesh is None:
-            def step_fn(st, batch, payload):
-                ok = up(batch.ok)
-                if payload[0] == "delta":
-                    return scan.scan_step_delta(
-                        qd, st, up(payload[1]), up(payload[2]), ok,
-                        batch.base_idx)
-                return scan.scan_step_packed(qd, st, up(payload[1]), ok,
-                                             batch.base_idx)
-            return step_fn
-        # dense sharded steps: only the --no-prune loop uses these (the
-        # sharded prune path builds its own survivor ops)
-        sh_step = pmesh.make_sharded_scan_step(qd, mesh)
-        sh_step_delta = pmesh.make_sharded_scan_step(qd, mesh, delta=True)
-
-        def step_fn(st, batch, payload):
-            ok, ridx = up(batch.ok), ridx_of(batch, payload)
-            if payload[0] == "delta":
-                return sh_step_delta(st, up(payload[1]), up(payload[2]), ok,
-                                     ridx)
-            return sh_step(st, up(payload[1]), ok, ridx)
-        return step_fn
-
-    def _progress(total):
-        nonlocal last_print
+    for batch, payload in observe.iter_spans("stream_wait", pairs):
+        due = cfg.checkpoint is not None and \
+            time.time() - last_ckpt >= cfg.checkpoint_every
+        snap = mode.snapshot(batch) if due and mode.snapshot_first else None
+        with observe.span("upload_prune"):
+            flags = mode.step(batch, payload)
+            count_upload(payload)
+        mode.settle(batch, flags)
+        if due and not mode.snapshot_first:
+            snap = mode.snapshot(batch)
+        if snap is not None:
+            _save_ckpt(*snap)
+        total = batch.base_idx + batch.n
         if total - last_print >= cfg.print_interval:
             last_print = total
             elapsed = root.seconds() - scan_t0
@@ -377,162 +514,7 @@ def _run_nearest(ref_paths: list[str], query_path: str,
                 f"{streamer.stats.n_invalid} "
                 f"poorly resolved. {rate:,.0f} genomes/sec. "
                 f"{elapsed:.1f}s elapsed.")
-
-    if cfg.prune and mesh is not None:
-        # ---- sharded two-phase with device-resident survivor buffers:
-        # prune data-parallel over 'db'; each shard compacts its own
-        # surviving rows into its own buffer (no re-upload); a flush
-        # scores every shard's buffer and merges the candidates
-        with observe.span("device_data"):
-            scan.build_prune_data(qd, pack)
-            B_loc = cfg.pool // n_db
-            cap_loc = 2 * B_loc
-            sv_init, prune_acc, prune_acc_delta, sv_flush = \
-                pmesh.make_sharded_survivor_ops(qd, mesh, cap_loc)
-            bufs = sv_init()
-        retained: dict[int, tuple] = {}
-
-        def flush_p2_sharded():
-            nonlocal state, retained
-            if not retained:
-                return
-            with observe.span("device_wait"):
-                idxs = bufs.indices()
-            with observe.span("flush"):
-                state, flags, _ = sv_flush(state, bufs)
-            observe.count("flushes", 1)
-            write_flushed(retained, idxs[np.nonzero(fetch(flags))[0]])
-            retained = {}
-
-        for batch, payload in pairs:
-            with observe.span("upload_prune"):
-                ok, ridx = up(batch.ok), ridx_of(batch, payload)
-                if payload[0] == "delta":
-                    survive, bufs = prune_acc_delta(
-                        state, bufs, up(payload[1]), up(payload[2]), ok,
-                        ridx)
-                else:
-                    survive, bufs = prune_acc(state, bufs, up(payload[1]),
-                                              ok, ridx)
-            count_upload(payload)
-            sv = np.nonzero(fetch(survive)[: batch.n])[0]
-            with observe.span("retain"):
-                retained.update(zip((batch.base_idx + sv).tolist(),
-                                    dump_entries(batch, sv)))
-            observe.count("rows_scored", len(sv))
-            # rows past a shard's buffer end would be lost: flush
-            # whenever the fullest shard could overflow on the next batch
-            with observe.span("device_wait"):
-                fullest = int(bufs.fill().max())
-            if fullest + B_loc > cap_loc:
-                flush_p2_sharded()
-            if cfg.checkpoint is not None and \
-                    time.time() - last_ckpt >= cfg.checkpoint_every:
-                flush_p2_sharded()
-                last_ckpt = time.time()
-                _save_ckpt(batch, host_state(state))
-            _progress(batch.base_idx + batch.n)
-        flush_p2_sharded()
-    elif cfg.prune:
-        with observe.span("device_data"):
-            scan.build_prune_data(qd, pack)
-            # ---- two-phase: phase 1 prunes on the device; surviving
-            # rows are compacted into a device buffer (no re-upload) and
-            # phase 2 scores the buffer when it could overflow.
-            # Capacity: ~1 GB of device memory, and at least two batches.
-            W = qd.width
-            cap = max(2 * cfg.pool,
-                      min(8 * cfg.pool, (1 << 30) // max(W, 1)))
-            buf, buf_idx, buf_n = scan.new_survivor_buffer(cap, W, dev)
-        # host copies of only the SURVIVOR rows (name + dump payload),
-        # keyed by global index
-        retained: dict[int, tuple] = {}
-        warmed_up = False
-        n_buf_host = 0    # lagged host mirror of buf_n (see drain)
-        pending = None    # (survive_dev, batch), drained ONE BEHIND
-
-        def drain_pending():
-            nonlocal pending, n_buf_host
-            if pending is None:
-                return
-            survive_d, pbatch = pending
-            pending = None
-            sv = np.nonzero(fetch(survive_d)[: pbatch.n])[0]
-            with observe.span("retain"):
-                retained.update(zip((pbatch.base_idx + sv).tolist(),
-                                    dump_entries(pbatch, sv)))
-            observe.count("rows_scored", len(sv))
-            n_buf_host += len(sv)
-
-        def flush_p2():
-            nonlocal state, retained, n_buf_host
-            drain_pending()
-            if n_buf_host == 0:
-                retained = {}
-                return
-            with observe.span("flush"):
-                state, flags = scan.flush_survivors(qd, state, buf, buf_idx,
-                                                    buf_n)
-            observe.count("flushes", 1)
-            flags = fetch(flags)
-            write_flushed(retained, fetch(buf_idx)[np.nonzero(flags)[0]])
-            retained = {}
-            buf_n.zero_()
-            n_buf_host = 0
-
-        for batch, payload in pairs:
-            with observe.span("upload_prune"):
-                ok = up(batch.ok)
-                if payload[0] == "delta":
-                    survive, codes_d = scan.prune_and_hold_delta(
-                        qd, state, up(payload[1]), up(payload[2]), ok)
-                else:
-                    survive, codes_d = scan.prune_and_hold(
-                        qd, state, up(payload[1]), ok)
-                scan.accumulate_survivors(buf, buf_idx, buf_n, codes_d,
-                                          survive, batch.base_idx)
-            count_upload(payload)
-            drain_pending()               # sync batch i-1, not i
-            pending = (survive, batch)
-            # after the drain n_buf_host covers through batch i-1 and the
-            # buffer through batch i: if n_buf_host + 2*pool <= cap, a
-            # fully surviving batch i plus the NEXT batch still fit.  The
-            # warm-up flush fires on the first batch: thresholds tighten
-            # only at flushes, and an empty state prunes nothing
-            if not warmed_up or n_buf_host + 2 * cfg.pool > cap:
-                flush_p2()
-                warmed_up = True
-            if cfg.checkpoint is not None and \
-                    time.time() - last_ckpt >= cfg.checkpoint_every:
-                flush_p2()
-                last_ckpt = time.time()
-                _save_ckpt(batch, host_state(state))
-            _progress(batch.base_idx + batch.n)
-        flush_p2()
-    else:
-        step_fn = make_step_fn()
-        pending = None  # (flags_device, batch) for one-batch pipelining
-        for batch, payload in pairs:
-            # a due checkpoint snapshots the state BEFORE this step,
-            # consistent with the dump/stream position after draining
-            # the previous batch
-            ckpt_due = (cfg.checkpoint is not None and pending is not None
-                        and time.time() - last_ckpt >= cfg.checkpoint_every)
-            if ckpt_due:
-                state_host = host_state(state)
-            with observe.span("upload_prune"):
-                state, flags_d = step_fn(state, batch, payload)
-            count_upload(payload)
-            if pending is not None:
-                prev = pending[1]
-                _drain(pending)
-                if ckpt_due:
-                    last_ckpt = time.time()
-                    _save_ckpt(prev, state_host)
-            pending = (flags_d, batch)
-            _progress(batch.base_idx + batch.n)
-        if pending is not None:
-            _drain(pending)
+    mode.finish()
     for name, n in (("rows_read", streamer.stats.count),
                     ("rows_invalid", streamer.stats.n_invalid),
                     ("rows_same_name", streamer.stats.same_name)):
@@ -548,9 +530,9 @@ def _run_nearest(ref_paths: list[str], query_path: str,
         observe.count("rows_scored", total)
     with observe.span("dump_close"):
         writer.close()
-    observe.count("dump_bytes", os.path.getsize(dump_path))
+        observe.count("dump_bytes", os.path.getsize(dump_path))
 
-    scores, indices = host_state(state)
+    scores, indices = mode.host_state()
     result = NearestResult(
         pack=pack, scores=scores, indices=indices, names=names,
         n_scanned=streamer.stats.count,
@@ -568,6 +550,6 @@ def _run_nearest(ref_paths: list[str], query_path: str,
     csv_path = cfg.prefix + ".csv" + WRITE_CODEC_SUFFIX[cfg.codec]
     with observe.span("csv"):
         result.write_csv(csv_path)
-    log(f"Saved distance table to {csv_path} ; "
-        f"{root.seconds():.2f}s total.")
+        log(f"Saved distance table to {csv_path} ; "
+            f"{root.seconds():.2f}s total.")
     return result

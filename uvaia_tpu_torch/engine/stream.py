@@ -5,10 +5,11 @@
 (a background reader thread feeding fixed-shape encoded batches through
 a bounded queue, the native reader's batched API on the fast path);
 :class:`EncodedStream` is the counterpart of its encode stage, encoding
-with the port's jax-free host module (ops/host.py).  The native reader
-takes every file whose codec the port's library was built with; the
-others (bz2 always, xz where the machine has no liblzma) go through
-the Python reader.
+with the port's jax-free host module (ops/host.py);
+:func:`open_reference_stream` opens ``nearest``'s and ``ball``'s input.
+The native reader takes every file whose codec the port's library was
+built with; the others (bz2 always, xz where the machine has no
+liblzma) go through the Python reader.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import numpy as np
 
 from ..core.encoding import ENCODE_LUT, RECOGNISED, strict_chars_check
 from ..io import native
+from ..io import store as store_mod
 from ..io.compress import sniff_codec
 from ..io.fasta import read_fasta
 from ..ops import host
@@ -28,7 +30,8 @@ from ..utils import observe
 from ..utils.prefetch import Prefetcher, ordered_pool_map
 
 __all__ = ["EncodedStream", "RefBatch", "RefStreamer", "StreamStats",
-           "dump_entries", "dump_entry", "write_dump"]
+           "dump_entries", "dump_entry", "open_reference_stream",
+           "write_dump"]
 
 
 @dataclass
@@ -325,3 +328,28 @@ class EncodedStream:
 
     def __iter__(self):
         return iter(self._pf)
+
+
+def open_reference_stream(paths: list[str], n_sites: int, batch: int,
+                          query_base: np.ndarray, limit_records: int = 0,
+                          **streamer_kw):
+    """(streamer, (batch, payload) pairs, the payloads' delta base) of
+    all-store or all-FASTA inputs: a store's own payloads, against its
+    base if it has one, or FASTA encoded against ``query_base``."""
+    n_store = sum(store_mod.is_store(p) for p in paths)
+    if n_store and n_store != len(paths):
+        raise SystemExit(
+            "reference inputs mix ingested stores and FASTA files; "
+            "scan them in separate runs (or ingest the FASTA too)")
+    if not n_store:
+        if limit_records:
+            raise SystemExit(
+                "record-window scanning (limit_records) requires "
+                "ingested store inputs")
+        streamer = RefStreamer(paths, n_sites, batch, **streamer_kw)
+        return streamer, EncodedStream(streamer, query_base), query_base
+    streamer = store_mod.StoreStreamer(paths, n_sites, batch,
+                                       limit_records=limit_records,
+                                       **streamer_kw)
+    base = store_mod.peek_store_base(paths[0])
+    return streamer, streamer, query_base if base is None else base

@@ -116,14 +116,15 @@ def device_data_from_numpy(d: dict, device) -> QueryDeviceData:
     return QueryDeviceData(**kw)
 
 
-def build_device_data(pack, k: int, device="cpu",
-                      site_shards: int = 1) -> QueryDeviceData:
+def build_device_data(pack, k: int, device="cpu", site_shards: int = 1,
+                      delta_base=None) -> QueryDeviceData:
     """Query tensors for a QueryPack (the numpy preparation of
     uvaia_tpu.ops.scan.build_device_data).  ``site_shards`` pads the
     site axis to a multiple of 1024 * site_shards, so that it splits
     into equal blocks over the site axis of a mesh (parallel/mesh.py).
     An --acgt pack has no ambiguity columns (no corrections in that
-    mode) and a q_poly."""
+    mode) and a q_poly.  ``delta_base``: the sparse deltas' base
+    (default: the queries' majority code)."""
     L = pack.n_sites
     mult = 1024 * site_shards
     W = -(-L // mult) * mult
@@ -147,7 +148,8 @@ def build_device_data(pack, k: int, device="cpu",
         acgt=pack.acgt, n_query=pack.n_query, n_sites=L, k=k,
         pack_keys=L < 2**15, cons_full=cons_full, q_full=q_full,
         amb_sites=amb_sites, q_poly=q_poly,
-        delta_base=majority_code(pack.codes)), device)
+        delta_base=(majority_code(pack.codes) if delta_base is None
+                    else delta_base)), device)
 
 
 def build_prune_data(qd: QueryDeviceData, pack) -> None:
