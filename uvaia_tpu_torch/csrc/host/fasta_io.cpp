@@ -25,6 +25,9 @@
 //       buffers owned by the handle, valid until the next call
 //   ufa_close(handle)
 //   ufa_codecs()                     bit 1: xz, bit 2: gzip
+//
+// Uncompressed files also read as ranges of whole records parsed on
+// several threads (ufa_map_open / ufa_map_find / ufa_map_parse, below).
 
 #include <cstdint>
 #include <cstdio>
@@ -39,6 +42,12 @@
 #include <mutex>
 #include <thread>
 
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <unistd.h>
 
 #if !defined(UFA_NO_LZMA) && __has_include(<lzma.h>)
@@ -600,6 +609,246 @@ long ufa_next_batch(void* handle, uint8_t* seqbuf, uint8_t* codebuf,
     k++;
   }
   return k;
+}
+
+}  // extern "C"
+
+// Ranged reading of an uncompressed file, for the pool of range parsers
+// of engine/stream.RefStreamer.  The file is mapped read-only.  One
+// thread finds the next records' bounds and names (ufa_map_find); the
+// records are then parsed in ranges on several threads, each straight
+// into its rows of the caller's arrays (ufa_map_parse).  Together they
+// give what ufa_next_batch gives on the same file:
+//   * the first record starts at the file's first '>', wherever it is;
+//   * a header runs to its '\n', less its '\r's; a header cut by the
+//     file's end is a record with no sequence, unless its name is empty;
+//   * a record ends where a line that starts with '>' begins;
+//   * its sequence is its other bytes but ' ', '\t', '\r' and '\n',
+//     uppercased.
+
+struct MappedFile {
+  const uint8_t* base = nullptr;
+  long size = 0;
+};
+
+// The end of the record whose sequence starts at `a`: the first line
+// start at or after `a` that holds '>', else the file's end.
+static long record_end(const uint8_t* b, long size, long a) {
+  for (long q = a; q < size;) {
+    if (b[q] == '>') return q;
+    const void* nl = memchr(b + q, '\n', static_cast<size_t>(size - q));
+    if (nl == nullptr) break;
+    q = static_cast<const uint8_t*>(nl) - b + 1;
+  }
+  return size;
+}
+
+// One line of n bytes into raw (uppercased) and cd (code[] of it), with
+// the count of nonzero codes; false when the line holds a byte below '!'
+// (a blank, a tab, a '\r', a '\n' or a control byte), which the caller
+// then walks byte by byte.
+static bool clean_line(const uint8_t* p, long n, const uint8_t* code,
+                       uint8_t* raw, uint8_t* cd, long* valid) {
+  bool low = false;
+  long v = 0;
+  for (long j = 0; j < n; j++) {
+    const uint8_t ch = p[j];
+    low |= ch < '!';
+    raw[j] = kUpper.tab[ch];
+    cd[j] = code[ch];
+    v += code[ch] != 0;
+  }
+  *valid = v;
+  return !low;
+}
+
+#if defined(__x86_64__)
+// clean_line, 32 bytes a step.  code[] is looked up as its 16-entry rows:
+// each row that holds a nonzero entry shuffles the bytes' low nibbles,
+// and the result is kept in the bytes whose high nibble picks that row.
+__attribute__((target("avx2,popcnt")))
+static bool clean_line_avx2(const uint8_t* p, long n, const uint8_t* code,
+                            uint8_t* raw, uint8_t* cd, long* valid) {
+  __m256i rows[16], nibs[16];
+  int nrows = 0;
+  for (int h = 0; h < 16; h++) {
+    bool any = false;
+    for (int l = 0; l < 16; l++) any |= code[16 * h + l] != 0;
+    if (!any) continue;
+    rows[nrows] = _mm256_broadcastsi128_si256(
+        _mm_loadu_si128(reinterpret_cast<const __m128i*>(code + 16 * h)));
+    nibs[nrows++] = _mm256_set1_epi8(static_cast<char>(h));
+  }
+  const __m256i f = _mm256_set1_epi8(0x0f), zero = _mm256_setzero_si256();
+  __m256i low = zero;
+  long v = 0, j = 0;
+  for (; j + 32 <= n; j += 32) {
+    const __m256i x =
+        _mm256_loadu_si256(reinterpret_cast<const __m256i*>(p + j));
+    low = _mm256_or_si256(
+        low, _mm256_and_si256(_mm256_cmpgt_epi8(x, _mm256_set1_epi8(-1)),
+                              _mm256_cmpgt_epi8(_mm256_set1_epi8('!'), x)));
+    const __m256i lower = _mm256_and_si256(
+        _mm256_cmpgt_epi8(x, _mm256_set1_epi8('a' - 1)),
+        _mm256_cmpgt_epi8(_mm256_set1_epi8('z' + 1), x));
+    _mm256_storeu_si256(
+        reinterpret_cast<__m256i*>(raw + j),
+        _mm256_sub_epi8(x, _mm256_and_si256(lower, _mm256_set1_epi8(0x20))));
+    const __m256i hi = _mm256_and_si256(_mm256_srli_epi16(x, 4), f);
+    const __m256i lo = _mm256_and_si256(x, f);
+    __m256i c = zero;
+    for (int k = 0; k < nrows; k++)
+      c = _mm256_or_si256(
+          c, _mm256_and_si256(_mm256_cmpeq_epi8(hi, nibs[k]),
+                              _mm256_shuffle_epi8(rows[k], lo)));
+    _mm256_storeu_si256(reinterpret_cast<__m256i*>(cd + j), c);
+    v += 32 - __builtin_popcount(static_cast<unsigned>(
+                  _mm256_movemask_epi8(_mm256_cmpeq_epi8(c, zero))));
+  }
+  long rest = 0;
+  const bool clean = clean_line(p + j, n - j, code, raw + j, cd + j, &rest);
+  *valid = v + rest;
+  return clean && _mm256_testz_si256(low, low);
+}
+
+static bool have_avx2() {
+  __builtin_cpu_init();  // this may run before libgcc's own constructor
+  return __builtin_cpu_supports("avx2") && __builtin_cpu_supports("popcnt");
+}
+static const bool kAvx2 = have_avx2();
+#endif
+
+extern "C" {
+
+// NULL when the file cannot be opened or mapped, or is not a regular file.
+void* ufa_map_open(const char* path) {
+  int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) return nullptr;
+  struct stat st;
+  if (fstat(fd, &st) != 0 || !S_ISREG(st.st_mode)) {
+    close(fd);
+    return nullptr;
+  }
+  MappedFile* m = new MappedFile();
+  m->size = static_cast<long>(st.st_size);
+  if (m->size > 0) {
+    void* p = mmap(nullptr, static_cast<size_t>(m->size), PROT_READ,
+                   MAP_PRIVATE, fd, 0);
+    if (p == MAP_FAILED) {
+      close(fd);
+      delete m;
+      return nullptr;
+    }
+    m->base = static_cast<const uint8_t*>(p);
+  }
+  close(fd);  // the mapping holds the file
+  return m;
+}
+
+void ufa_map_close(void* handle) {
+  MappedFile* m = static_cast<MappedFile*>(handle);
+  if (m->base != nullptr)
+    munmap(const_cast<uint8_t*>(m->base), static_cast<size_t>(m->size));
+  delete m;
+}
+
+// The next at most nmax records from byte *pos on (0 for a new file),
+// which is then moved past them.  Names as ufa_next_batch gives them;
+// record i's sequence bytes are [seq_off[i], seq_end[i]).  Returns the
+// number of records (fewer than nmax at the file's end or when namebuf
+// fills), 0 at the end, -1 when one name is larger than namebuf.
+long ufa_map_find(void* handle, long* pos, long nmax, char* namebuf,
+                  long namecap, long* name_ends, long* seq_off,
+                  long* seq_end) {
+  const MappedFile* m = static_cast<const MappedFile*>(handle);
+  const uint8_t* b = m->base;
+  const long size = m->size;
+  long p = *pos, k = 0, name_pos = 0;
+  while (k < nmax && p < size) {
+    const void* gt = memchr(b + p, '>', static_cast<size_t>(size - p));
+    if (gt == nullptr) {
+      p = size;
+      break;
+    }
+    const long s = static_cast<const uint8_t*>(gt) - b;
+    const void* nl = memchr(b + s + 1, '\n',
+                            static_cast<size_t>(size - s - 1));
+    const long h = nl ? static_cast<const uint8_t*>(nl) - b : size;
+    long nlen = 0;
+    for (long i = s + 1; i < h; i++) nlen += b[i] != '\r';
+    if (nl == nullptr && nlen == 0) {  // a bare '>' ends the file
+      p = size;
+      break;
+    }
+    if (name_pos + nlen > namecap) {
+      if (k == 0) return -1;
+      break;  // this record starts the next call
+    }
+    for (long i = s + 1; i < h; i++)
+      if (b[i] != '\r') namebuf[name_pos++] = static_cast<char>(b[i]);
+    name_ends[k] = name_pos;
+    const long a = nl ? h + 1 : size;
+    const long e = a >= size ? size : record_end(b, size, a);
+    seq_off[k] = a;
+    seq_end[k] = e;
+    k++;
+    p = e;
+  }
+  *pos = p;
+  return k;
+}
+
+// Parse n found records into rows of seqbuf (the uppercased bytes) and
+// codebuf (lut of them), each `stride` bytes, with their true lengths
+// and valid-site counts, as ufa_next_batch fills them.
+void ufa_map_parse(void* handle, const long* seq_off, const long* seq_end,
+                   long n, const uint8_t* lut, long stride,
+                   uint8_t* seqbuf, uint8_t* codebuf, long* seq_lens,
+                   long* valid) {
+  const uint8_t* b = static_cast<const MappedFile*>(handle)->base;
+  uint8_t code[256], skip[256];
+  for (int c = 0; c < 256; c++) {
+    code[c] = lut[kUpper.tab[c]];
+    skip[c] = c == ' ' || c == '\t' || c == '\r' || c == '\n';
+  }
+  for (long r = 0; r < n; r++) {
+    const long a = seq_off[r], e = seq_end[r];
+    uint8_t* raw = seqbuf + r * stride;
+    uint8_t* cd = codebuf + r * stride;
+    // the usual record: one line of `stride` bytes, then its line end
+    // or the file's end
+    const long tail = e - a - stride;
+    const uint8_t* p = b + a;
+    if (tail >= 0 && tail <= 2 &&
+        (tail == 0 || (tail == 1 && p[stride] == '\n') ||
+         (tail == 2 && p[stride] == '\r' && p[stride + 1] == '\n'))) {
+#if defined(__x86_64__)
+      const bool clean =
+          kAvx2 ? clean_line_avx2(p, stride, code, raw, cd, &valid[r])
+                : clean_line(p, stride, code, raw, cd, &valid[r]);
+#else
+      const bool clean = clean_line(p, stride, code, raw, cd, &valid[r]);
+#endif
+      if (clean) {
+        seq_lens[r] = stride;
+        continue;
+      }
+    }
+    // any other layout, line by line
+    long o = 0, v = 0;
+    for (long i = a; i < e; i++) {
+      const uint8_t c = b[i];
+      if (skip[c]) continue;
+      if (o < stride) {
+        raw[o] = kUpper.tab[c];
+        cd[o] = code[c];
+        v += code[c] != 0;
+      }
+      o++;
+    }
+    seq_lens[r] = o;
+    valid[r] = v;
+  }
 }
 
 // Sparse-delta encoder for the device upload path (ops/host.delta_encode).

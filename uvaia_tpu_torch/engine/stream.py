@@ -9,13 +9,20 @@ with the port's jax-free host module (ops/host.py);
 :func:`open_reference_stream` opens ``nearest``'s and ``ball``'s input.
 The native reader takes every file whose codec the port's library was
 built with; the others (bz2 always, xz where the machine has no
-liblzma) go through the Python reader.
+liblzma) go through the Python reader.  An uncompressed file is mapped
+and its records parsed straight into each batch's rows, to the same
+chunks: in ranges of RANGE_ROWS records on a pool of
+:func:`read_workers` threads when it holds two ranges, else at once on
+the reader thread.
 """
 
 from __future__ import annotations
 
 import ctypes
+import mmap
 import os
+import weakref
+from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -97,6 +104,90 @@ def write_dump(writer, entry) -> None:
         writer.write(name, seq)
 
 
+#: Records a range: what one worker of RefStreamer's pool parses at a
+#: time.  A raw file takes the pool when it may hold two ranges.
+RANGE_ROWS = 256
+#: The pool's most workers.
+MAX_READ_WORKERS = 4
+
+
+def read_workers() -> int:
+    """The pool's size: the cores this process may use less the main
+    thread, the reader thread and the encode pool's min(2, cores - 1),
+    at most MAX_READ_WORKERS, and at least 1 (the reader thread waits
+    while the pool parses, so one worker uses no more cores than the
+    serial reader)."""
+    cores = len(os.sched_getaffinity(0)) \
+        if hasattr(os, "sched_getaffinity") else os.cpu_count() or 1
+    encode = max(1, min(2, cores - 1))
+    return max(1, min(MAX_READ_WORKERS, cores - 2 - encode))
+
+
+class _Lease:
+    """Lends a row buffer to the arrays of one batch: every view of the
+    batch's rows hangs from the lease, which goes when the last does."""
+
+    def __init__(self, mem: np.ndarray):
+        self.mem = mem
+        self.__array_interface__ = mem.__array_interface__
+
+
+class _RowBuffers:
+    """The (raw, codes) rows of one stream's mapped batches, views of
+    (2, batch, n_sites) buffers.  A buffer comes back to the stream when
+    the last array that views its batch is gone, and the next batch takes
+    it before a new one is mapped; so the stream holds no more buffers
+    than it ever had batches alive, and lets them go with itself.  For
+    the pool a new buffer is mapped with its pages populated at once
+    (MAP_POPULATE): first writes into fresh memory otherwise fault a
+    page at a time, and on several threads those faults cost the parse
+    as much as it costs itself.  The job counts the buffers it maps as
+    ``row_buffers``."""
+
+    def __init__(self, batch: int, n_sites: int):
+        self.shape = (2, batch, n_sites)
+        self.free: list[np.ndarray] = []
+
+    def take(self, populate: bool) -> tuple[np.ndarray, np.ndarray]:
+        try:
+            mem = self.free.pop()
+        except IndexError:
+            flags = mmap.MAP_PRIVATE
+            if populate:
+                flags |= getattr(mmap, "MAP_POPULATE", 0)
+            mm = mmap.mmap(-1, int(np.prod(self.shape)), flags=flags)
+            mem = np.frombuffer(mm, dtype=np.uint8).reshape(self.shape)
+            observe.count("row_buffers", 1)
+        lease = _Lease(mem)
+        weakref.finalize(lease, self.free.append, mem).atexit = False
+        rows = np.asarray(lease)
+        return rows[0], rows[1]
+
+
+def _ranged(path, n_sites: int) -> bool:
+    """Whether a raw file is large enough for two ranges of aligned
+    records (each at least '>', '\\n' and n_sites bytes)."""
+    return os.path.getsize(path) >= 2 * RANGE_ROWS * (n_sites + 2)
+
+
+def _aligned_names(namebuf, ends, lens, k: int, L: int) -> list[str]:
+    """The k names the native readers wrote into ``namebuf`` (name i
+    ends at ``ends[i]``); SystemExit at the first record whose length
+    ``lens[i]`` is not L."""
+    blob = ctypes.string_at(namebuf, int(ends[k - 1]))
+    names, start = [], 0
+    for i in range(k):
+        names.append(blob[start:ends[i]].decode("utf-8", errors="replace"))
+        start = ends[i]
+    for i in range(k):
+        if lens[i] != L:
+            raise SystemExit(
+                f"Reference sequence '{names[i]}' has {lens[i]} sites "
+                f"but query sequences have {L} sites: all sequences must "
+                "be aligned")
+    return names
+
+
 @dataclass
 class StreamStats:
     count: int = 0             # sequences read (incl. rejected-by-quality)
@@ -112,7 +203,11 @@ class RefStreamer:
     skip refs with fewer than (1-ref_ambiguity)*L valid sites, error on
     length mismatch.  Each batch is a ``stream_read`` span on the
     reader thread and adds the raw bytes of the rows it hands on
-    (n x L) to the job's ``stream_bytes``.
+    (n x L) to the job's ``stream_bytes``.  Where the pool reads a raw
+    file, each of its ranges is a ``read_range`` span on a worker; the
+    job counts the pool's size as ``read_workers`` (0 when no file took
+    it), the records it parsed as ``range_rows``, and the row buffers
+    mapped for raw files' batches as ``row_buffers``.
     """
 
     def __init__(self, paths: list[str], n_sites: int, batch: int,
@@ -139,15 +234,36 @@ class RefStreamer:
 
     def _records(self):
         """Yield (names, raw_chars (k, L), codes-or-None,
-        valid-counts-or-None) chunks."""
+        valid-counts-or-None) chunks: a raw file mapped and parsed in
+        ranges (on the pool when it holds two ranges, else on this
+        thread), every other file the library reads from its serial
+        reader, the rest in Python."""
         lib = native.get_lib()
         natively = {"raw", *native.codecs(lib)} if lib is not None else ()
-        for path in self.paths:
-            self.stats.files.append(path)
-            if sniff_codec(path) in natively:
-                yield from self._native_chunks(lib, path)
-            else:
-                yield from self._python_chunks(path)
+        observe.count("read_workers", 0)
+        observe.count("range_rows", 0)
+        rows = _RowBuffers(self.batch, self.n_sites)
+        pool = None
+        try:
+            for path in self.paths:
+                self.stats.files.append(path)
+                codec = sniff_codec(path)
+                if codec == "raw" and lib is not None and \
+                        os.path.isfile(path):
+                    pooled = _ranged(path, self.n_sites)
+                    if pooled and pool is None:
+                        workers = read_workers()
+                        pool = ThreadPoolExecutor(workers)
+                        observe.count("read_workers", workers)
+                    yield from self._range_chunks(
+                        lib, path, rows, pool if pooled else None)
+                elif codec in natively:
+                    yield from self._native_chunks(lib, path)
+                else:
+                    yield from self._python_chunks(path)
+        finally:
+            if pool is not None:
+                pool.shutdown()
 
     def _native_chunks(self, lib, path):
         L, chunk = self.n_sites, self.batch
@@ -177,22 +293,61 @@ class RefStreamer:
                     raise SystemExit(f"error reading {path}")
                 if k == 0:
                     return
-                blob = namebuf.raw
-                names, start = [], 0
-                for i in range(k):
-                    names.append(blob[start:ends[i]].decode(
-                        "utf-8", errors="replace"))
-                    start = ends[i]
-                for i in range(k):
-                    if lens[i] != L:
-                        raise SystemExit(
-                            f"Reference sequence '{names[i]}' has "
-                            f"{lens[i]} sites but query sequences have "
-                            f"{L} sites: all sequences must be aligned")
-                yield (names, raw[:k], codes[:k],
-                       np.asarray(valid[:k], dtype=np.int64))
+                yield (_aligned_names(namebuf, ends, lens, k, L), raw[:k],
+                       codes[:k], np.asarray(valid[:k], dtype=np.int64))
         finally:
             lib.ufa_close(handle)
+
+    def _range_chunks(self, lib, path, rows, pool):
+        """The serial reader's chunks of a raw file: each batch's records
+        found by one native call, then parsed straight into the batch's
+        rows, in ranges of RANGE_ROWS records on ``pool``, or at once
+        here when there is none."""
+        L, chunk = self.n_sites, self.batch
+        handle = lib.ufa_map_open(os.fsencode(path))
+        if not handle:
+            raise SystemExit(f"cannot open reference file {path}")
+        namecap = 1024 * chunk
+        namebuf = ctypes.create_string_buffer(namecap)
+        ends, lens, valid, seq_off, seq_end = (
+            np.empty(chunk, dtype=np.int64) for _ in range(5))
+        lut = ENCODE_LUT.tobytes()
+        pos = ctypes.c_long(0)
+
+        def ptr(a, i=0):
+            return a.ctypes.data + i * a.strides[0]
+
+        def parse(raw, codes, i, j):
+            return lib.ufa_map_parse(
+                handle, ptr(seq_off, i), ptr(seq_end, i), j - i, lut, L,
+                ptr(raw, i), ptr(codes, i), ptr(lens, i), ptr(valid, i))
+
+        parse_range = observe.span("read_range")(parse)
+
+        try:
+            while True:
+                k = lib.ufa_map_find(
+                    handle, ctypes.byref(pos), chunk, namebuf, namecap,
+                    ptr(ends), ptr(seq_off), ptr(seq_end))
+                if k < 0:
+                    raise SystemExit(f"error reading {path}")
+                if k == 0:
+                    return
+                raw, codes = rows.take(pool is not None)
+                if pool is None:
+                    parse(raw, codes, 0, k)
+                else:
+                    parts = [pool.submit(parse_range, raw, codes, i,
+                                         min(i + RANGE_ROWS, k))
+                             for i in range(0, k, RANGE_ROWS)]
+                    wait(parts)
+                    for f in parts:
+                        f.result()
+                    observe.count("range_rows", k)
+                yield (_aligned_names(namebuf, ends, lens, k, L), raw[:k],
+                       codes[:k], valid[:k].copy())
+        finally:
+            lib.ufa_map_close(handle)
 
     def _python_chunks(self, path):
         L = self.n_sites

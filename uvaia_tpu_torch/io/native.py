@@ -1,5 +1,6 @@
 """ctypes bridge to the port's native host library (csrc/host/fasta_io.cpp):
-the FASTA reader over raw / gzip / xz files, the sparse-delta encoder
+the FASTA reader over raw / gzip / xz files and its ranged reader of
+uncompressed files (``ufa_map_*``, engine/stream.py), the sparse-delta encoder
 (``ufa_delta_extract`` / ``ufa_delta_repack``, used by ops/host.py), and
 the store-block digest of ``ingest`` and its inverse, the bulk row decode
 of a scan's survivors (``ufa_store_block``, ``ufa_store_decode``,
@@ -108,6 +109,20 @@ def load(path: Path):
         ctypes.c_long, ctypes.c_char_p, ctypes.c_long,
         ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
         ctypes.POINTER(ctypes.c_long)]
+    lib.ufa_map_open.restype = ctypes.c_void_p
+    lib.ufa_map_open.argtypes = [ctypes.c_char_p]
+    lib.ufa_map_close.restype = None
+    lib.ufa_map_close.argtypes = [ctypes.c_void_p]
+    lib.ufa_map_find.restype = ctypes.c_long
+    lib.ufa_map_find.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_long), ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.ufa_map_parse.restype = None
+    lib.ufa_map_parse.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long,
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     lib.ufa_delta_extract.restype = ctypes.c_long
     lib.ufa_delta_extract.argtypes = [
         ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
